@@ -45,6 +45,25 @@ def test_sponge_kernel_matches_plain(cuda):
                        tip5_cuda.sponge_absorb_rows_plain(view))
 
 
+def test_permutation_kernel_matches_plain_at_worst_cases(cuda):
+    """The states at which tests/test_torch_mds.py holds the plain version
+    against the JAX package: the MDS's largest halves."""
+    cols = [[P - 1] * 16, [2**32 - 1] * 16, [0, P - 1] * 8, [P - 1, 0] * 8,
+            [0, 2**32 - 1] * 8]
+    s = gf.from_u64(np.array(cols, np.uint64).T.copy(), cuda)
+    assert torch.equal(tip5_cuda.permutation(s),
+                       tip5_cuda.permutation_plain(s))
+
+
+def test_sponge_kernel_matches_plain_at_main_table_width(cuda):
+    """The main table of a 2^15 proof: 2^18 rows of 379 elements, read
+    column-major as the commit stage reads its LDE."""
+    rows = gf.from_u64(_field(379, (379, 1 << 18)), cuda).T
+    assert rows.stride() == (1, 1 << 18)
+    assert torch.equal(tip5_cuda.sponge_absorb_rows(rows),
+                       tip5_cuda.sponge_absorb_rows_plain(rows))
+
+
 def test_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tip5_cuda.permutation(torch.zeros((16, 8), dtype=torch.int64,

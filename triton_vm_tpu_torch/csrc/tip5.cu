@@ -6,20 +6,32 @@
 // K2 `tip5_sponge_rows_kernel` replaces
 //   triton_vm_tpu/ops/tip5_pallas.py::sponge_absorb_rows_t (pallas_call at :233).
 //
-// What bounds them on this card: integer ALU work, not bytes. One
-// permutation is 5 rounds of 56 Goldilocks products (8 for the Montgomery
-// S-box on state[0..4], 48 for x^7 on state[4..16]), 256 MDS
-// multiply-adds and 16 128-bit reductions, against 256 bytes read and
-// written (K1) or 80 bytes read per absorbed chunk (K2). The design keeps
-// all of it in registers: one thread owns one state (16 x u64), products
-// are `a * b` plus `__umul64hi`, the MDS accumulates 32-bit halves in two
-// u64 sums per lane and reduces once, round constants and the MDS column
-// sit in constant memory (uniform reads), and the 256-entry S-box byte
-// table sits in shared memory (per-thread gathers; GPUs gather cheaply,
-// so the TPU's arithmetic S-box is not needed). K2 reads each row through
-// a row and a column stride, so it hashes a column-major LDE in place
-// (neighbouring threads read neighbouring rows) and appends the 1-then-
-// zeros padding itself instead of reading a padded copy.
+// What bounds them on this card: integer instruction issue, not bytes. A
+// permutation reads and writes 256 bytes (K1) or reads 80 bytes per
+// absorbed chunk (K2) and runs 5 rounds of S-box, MDS and round constants
+// on 16 Goldilocks words. One thread owns one state, all in registers;
+// the SASS of a round (tools/tip5_probe.py) is what the design counts:
+//
+// - Reductions are branch-free carry chains, each in one asm statement
+//   (the carry flag does not live from one asm statement to the next),
+//   and lazy: a word may be any u64 representative of its field element
+//   inside a permutation and is made canonical only where the value, not
+//   its class, matters: the S-box's byte split and the permutation's
+//   output.
+// - The MDS layer is the direct 16 x 16 circulant on the 32-bit halves
+//   of the words, as FP64 FMAs: every product and partial sum is an
+//   integer below 2^52, exact in a double, so the otherwise idle FP64
+//   pipe does the 512 multiply-adds of a round and the integer pipes
+//   keep the rest. ops/tip5_cuda.py::_mds does the same in float64.
+// - The Montgomery steps of the S-box multiply by R = 2^32 - 1 and by
+//   R^-1 = -2^32 (mod p), so they are shifts and one reduction each.
+// - The 256-entry S-box byte table sits in shared memory (8 gathers a
+//   word; GPUs gather cheaply, so the TPU's arithmetic S-box is not
+//   needed); round constants sit in constant memory (uniform reads).
+// - K2 loads chunk c + 1 of its row while it permutes chunk c, and reads
+//   each row through a row and a column stride, so it hashes a
+//   column-major LDE in place (neighbouring threads read neighbouring
+//   rows) and appends the 1-then-zeros padding itself.
 //
 // Interface: plain C, driven through ctypes (ops/tip5_cuda.py). Each
 // launcher enqueues on the given stream, allocates nothing, and returns
@@ -31,16 +43,14 @@
 namespace {
 
 constexpr uint64_t kP = 0xFFFFFFFF00000001ull;
-constexpr uint64_t kEps = 0xFFFFFFFFull;    // 2^64 mod p
-constexpr uint64_t kR = 0xFFFFFFFFull;      // Montgomery R = 2^64 mod p
-constexpr uint64_t kRInv = 0xFFFFFFFE00000001ull;
+constexpr uint64_t kEps = 0xFFFFFFFFull;  // 2^64 mod p
 constexpr int kRounds = 5;
 constexpr int kState = 16;
 constexpr int kRate = 10;
 constexpr int kThreads = 128;
 
-// tip5.MDS_MATRIX_FIRST_COLUMN
-__constant__ uint32_t kMds[kState] = {
+// tip5.MDS_MATRIX_FIRST_COLUMN, as doubles for the FP64 pipe
+__constant__ double kMds[kState] = {
     61402, 1108, 28750, 33823, 7454, 43244, 53865, 12034,
     56951, 27521, 41351, 40901, 12021, 59689, 26798, 17845};
 
@@ -73,28 +83,95 @@ __constant__ uint64_t kRoundConstants[kRounds * kState] = {
     0x8AF9D44A5F4FDC6Bull, 0xD80219CD97C0D762ull, 0x10C9CEBA14148EBBull, 0x539BD4C3F2F24474ull,
 };
 
-// (hi * 2^64 + lo) mod p, canonical: 2^64 = 2^32 - 1 and 2^96 = -1.
+__device__ __forceinline__ uint32_t lo32(uint64_t x) {
+  return static_cast<uint32_t>(x);
+}
+
+__device__ __forceinline__ uint32_t hi32(uint64_t x) {
+  return static_cast<uint32_t>(x >> 32);
+}
+
+__device__ __forceinline__ uint64_t join(uint32_t lo, uint32_t hi) {
+  return (static_cast<uint64_t>(hi) << 32) | lo;
+}
+
+// (h * 2^64 + l) mod p for h < 2^32, as a u64 that need not be
+// canonical. With 2^64 = eps: r = l + h * eps, plus eps on a carry (r <
+// h * eps < 2^64 - 2^33 then, so it cannot carry again); h * eps =
+// h * 2^32 - h is a subtraction.
+__device__ __forceinline__ uint64_t reduce96(uint64_t l, uint32_t h) {
+  uint32_t r0, r1, m;
+  asm("{\n\t"
+      ".reg .u32 u0, u1;\n\t"
+      "sub.cc.u32  u0, 0, %5;\n\t"  // (u1, u0) = h * eps
+      "subc.u32    u1, %5, 0;\n\t"
+      "add.cc.u32  %0, %3, u0;\n\t"
+      "addc.cc.u32 %1, %4, u1;\n\t"
+      "addc.u32    %2, 0, 0;\n\t"
+      "neg.s32     %2, %2;\n\t"     // m = carry ? 2^32 - 1 : 0
+      "add.cc.u32  %0, %0, %2;\n\t"
+      "addc.u32    %1, %1, 0;\n\t"
+      "}"
+      : "=&r"(r0), "=&r"(r1), "=&r"(m)
+      : "r"(lo32(l)), "r"(hi32(l)), "r"(h));
+  return join(r0, r1);
+}
+
+// (hi * 2^64 + lo) mod p, as a u64 that need not be canonical. With
+// 2^96 = -1: t = lo - hi[63:32], less eps on a borrow (t >= 2^64 - 2^32
+// + 1 then, so it cannot borrow again), and then reduce96(t, hi[31:0]).
 __device__ __forceinline__ uint64_t reduce128(uint64_t lo, uint64_t hi) {
-  const uint64_t hi_hi = hi >> 32;
-  const uint64_t hi_lo = hi & kEps;
-  uint64_t t0 = lo - hi_hi;
-  if (lo < hi_hi) t0 -= kEps;
-  const uint64_t t1 = hi_lo * kEps;
-  uint64_t r = t0 + t1;
-  if (r < t1) r += kEps;
-  if (r >= kP) r -= kP;
-  return r;
+  uint32_t t0, t1, m;
+  asm("{\n\t"
+      "sub.cc.u32  %0, %3, %5;\n\t"
+      "subc.cc.u32 %1, %4, 0;\n\t"
+      "subc.u32    %2, 0, 0;\n\t"   // m = borrow ? 2^32 - 1 : 0
+      "sub.cc.u32  %0, %0, %2;\n\t"
+      "subc.u32    %1, %1, 0;\n\t"
+      "}"
+      : "=&r"(t0), "=&r"(t1), "=&r"(m)
+      : "r"(lo32(lo)), "r"(hi32(lo)), "r"(hi32(hi)));
+  return reduce96(join(t0, t1), lo32(hi));
+}
+
+// The canonical x mod p: x - p = x + eps (mod 2^64), and that add
+// carries exactly when x >= p.
+__device__ __forceinline__ uint64_t canonical(uint64_t x) {
+  uint32_t r0, r1;
+  asm("{\n\t"
+      ".reg .u32 t0, t1, c;\n\t"
+      ".reg .pred q;\n\t"
+      "add.cc.u32  t0, %2, 0xFFFFFFFF;\n\t"
+      "addc.cc.u32 t1, %3, 0;\n\t"
+      "addc.u32    c, 0, 0;\n\t"
+      "setp.ne.u32 q, c, 0;\n\t"
+      "selp.b32    %0, t0, %2, q;\n\t"
+      "selp.b32    %1, t1, %3, q;\n\t"
+      "}"
+      : "=&r"(r0), "=&r"(r1)
+      : "r"(lo32(x)), "r"(hi32(x)));
+  return join(r0, r1);
+}
+
+// a + b mod p for any u64 a and a canonical b, not canonical: plus eps on
+// a carry (a + b - 2^64 < p then, so it cannot carry again).
+__device__ __forceinline__ uint64_t add_lazy(uint64_t a, uint64_t b) {
+  uint32_t r0, r1, m;
+  asm("{\n\t"
+      "add.cc.u32  %0, %3, %5;\n\t"
+      "addc.cc.u32 %1, %4, %6;\n\t"
+      "addc.u32    %2, 0, 0;\n\t"
+      "neg.s32     %2, %2;\n\t"
+      "add.cc.u32  %0, %0, %2;\n\t"
+      "addc.u32    %1, %1, 0;\n\t"
+      "}"
+      : "=&r"(r0), "=&r"(r1), "=&r"(m)
+      : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)));
+  return join(r0, r1);
 }
 
 __device__ __forceinline__ uint64_t mulmod(uint64_t a, uint64_t b) {
   return reduce128(a * b, __umul64hi(a, b));
-}
-
-__device__ __forceinline__ uint64_t addmod(uint64_t a, uint64_t b) {
-  uint64_t s = a + b;
-  if (s < a) s += kEps;
-  if (s >= kP) s -= kP;
-  return s;
 }
 
 // tip5.LOOKUP_TABLE[i] = ((i + 1)^3 mod 257) - 1, built per block.
@@ -106,16 +183,20 @@ __device__ __forceinline__ void fill_lookup(uint8_t* lut) {
   __syncthreads();
 }
 
-// Split-and-lookup: Montgomery form, the byte map, back out of it.
+// Split-and-lookup: into Montgomery form (x * R, R = 2^32 - 1, so x * 2^32
+// - x as 128 bits), the byte map on the canonical value, back out (times
+// R^-1 = -2^32 mod p). The result lies in (0, p].
 __device__ __forceinline__ uint64_t split_and_lookup(uint64_t x,
                                                      const uint8_t* lut) {
-  const uint64_t raw = mulmod(x, kR);
+  const uint64_t shifted = x << 32;
+  const uint64_t raw = canonical(reduce96(
+      shifted - x, hi32(x) - (shifted < x ? 1 : 0)));
   uint64_t out = 0;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     out |= static_cast<uint64_t>(lut[(raw >> (8 * k)) & 0xFF]) << (8 * k);
   }
-  return mulmod(out, kRInv);
+  return kP - canonical(reduce96(out << 32, hi32(out)));
 }
 
 __device__ __forceinline__ uint64_t pow7(uint64_t x) {
@@ -124,6 +205,44 @@ __device__ __forceinline__ uint64_t pow7(uint64_t x) {
   return mulmod(mulmod(x4, x2), x);
 }
 
+// c * x for one vector of 32-bit halves x, c = kMds: out_i = sum_k c_k
+// x_{(i - k) mod 16}. A product is below 2^16 * 2^32 = 2^48 and a sum of
+// 16 below 2^52 (sum_k c_k < 2^20), integers a double's 53-bit
+// significand holds exactly, so each FMA is exact in any order.
+__device__ __forceinline__ void mds_half(const double (&x)[kState],
+                                         uint64_t (&out)[kState]) {
+#pragma unroll
+  for (int i = 0; i < kState; ++i) {
+    double acc = 0.0;
+#pragma unroll
+    for (int k = 0; k < kState; ++k) {
+      acc = fma(kMds[k], x[(i - k) & (kState - 1)], acc);
+    }
+    out[i] = __double2ull_rn(acc);
+  }
+}
+
+// out_i = sum_k c_k s_{(i - k) mod 16} mod p: both halves convolved, the
+// halves' results a, b (< 2^52 each) joined into a + b * 2^32 < 2^84,
+// one reduction.
+__device__ __forceinline__ void mds(uint64_t (&s)[kState]) {
+  double x[kState];
+  uint64_t lo[kState], hi[kState];
+#pragma unroll
+  for (int j = 0; j < kState; ++j) x[j] = __uint2double_rn(lo32(s[j]));
+  mds_half(x, lo);
+#pragma unroll
+  for (int j = 0; j < kState; ++j) x[j] = __uint2double_rn(hi32(s[j]));
+  mds_half(x, hi);
+#pragma unroll
+  for (int i = 0; i < kState; ++i) {
+    const uint64_t l = lo[i] + (hi[i] << 32);
+    s[i] = reduce96(l, hi32(hi[i]) + (l < lo[i] ? 1 : 0));
+  }
+}
+
+// The permutation; s may hold any u64 representatives, and leaves
+// canonical.
 __device__ __forceinline__ void permute(uint64_t (&s)[kState],
                                         const uint8_t* lut) {
 #pragma unroll 1
@@ -132,33 +251,14 @@ __device__ __forceinline__ void permute(uint64_t (&s)[kState],
     for (int i = 0; i < 4; ++i) s[i] = split_and_lookup(s[i], lut);
 #pragma unroll
     for (int i = 4; i < kState; ++i) s[i] = pow7(s[i]);
-
-    // circulant MDS: out_i = sum_k c_k * s_{(i - k) mod 16}, on 32-bit
-    // halves (products < 2^48, 16-term sums < 2^52), one reduction a lane
-    uint64_t acc_lo[kState], acc_hi[kState];
+    mds(s);
 #pragma unroll
     for (int i = 0; i < kState; ++i) {
-      acc_lo[i] = 0;
-      acc_hi[i] = 0;
-    }
-#pragma unroll
-    for (int j = 0; j < kState; ++j) {
-      const uint64_t lo = s[j] & kEps;
-      const uint64_t hi = s[j] >> 32;
-#pragma unroll
-      for (int i = 0; i < kState; ++i) {
-        const uint64_t c = kMds[(i - j) & (kState - 1)];
-        acc_lo[i] += c * lo;
-        acc_hi[i] += c * hi;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kState; ++i) {
-      const uint64_t lo = acc_lo[i] + (acc_hi[i] << 32);
-      const uint64_t hi = (acc_hi[i] >> 32) + (lo < acc_lo[i] ? 1 : 0);
-      s[i] = addmod(reduce128(lo, hi), kRoundConstants[r * kState + i]);
+      s[i] = add_lazy(s[i], kRoundConstants[r * kState + i]);
     }
   }
+#pragma unroll
+  for (int i = 0; i < kState; ++i) s[i] = canonical(s[i]);
 }
 
 // K1: state (16, B), contiguous; thread b permutes column b.
@@ -177,9 +277,21 @@ tip5_permutation_kernel(const uint64_t* __restrict__ in,
   for (int i = 0; i < kState; ++i) out[i * batch + b] = s[i];
 }
 
+// Chunk c of a row of n elements, padded with 1 then zeros.
+__device__ __forceinline__ void load_chunk(const uint64_t* row, int64_t c,
+                                           int64_t n, int64_t col_stride,
+                                           uint64_t (&chunk)[kRate]) {
+#pragma unroll
+  for (int i = 0; i < kRate; ++i) {
+    const int64_t j = c * kRate + i;
+    chunk[i] = j < n ? row[j * col_stride] : (j == n ? 1ull : 0ull);
+  }
+}
+
 // K2: row b holds elements rows[b * row_stride + j * col_stride], j < n.
 // Zero-capacity sponge over the row padded with 1 then zeros to a
-// multiple of RATE; digest (5, B) = state[0..5].
+// multiple of RATE; digest (5, B) = state[0..5]. The next chunk's loads
+// are in flight while this one is permuted.
 __global__ void __launch_bounds__(kThreads)
 tip5_sponge_rows_kernel(const uint64_t* __restrict__ rows, int64_t n,
                         int64_t batch, int64_t row_stride, int64_t col_stride,
@@ -189,16 +301,15 @@ tip5_sponge_rows_kernel(const uint64_t* __restrict__ rows, int64_t n,
   const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= batch) return;
   const uint64_t* row = rows + b * row_stride;
-  uint64_t s[kState];
+  uint64_t s[kState], next[kRate];
 #pragma unroll
   for (int i = 0; i < kState; ++i) s[i] = 0;
   const int64_t chunks = (n + kRate) / kRate;  // ceil((n + 1) / RATE)
+  load_chunk(row, 0, n, col_stride, next);
   for (int64_t c = 0; c < chunks; ++c) {
 #pragma unroll
-    for (int i = 0; i < kRate; ++i) {
-      const int64_t j = c * kRate + i;
-      s[i] = j < n ? row[j * col_stride] : (j == n ? 1ull : 0ull);
-    }
+    for (int i = 0; i < kRate; ++i) s[i] = next[i];
+    if (c + 1 < chunks) load_chunk(row, c + 1, n, col_stride, next);
     permute(s, lut);
   }
 #pragma unroll

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -31,7 +32,8 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 _SRC = _PKG_DIR / "csrc" / "tip5.cu"
 _BUILD_DIR = _PKG_DIR / "_build"
 _NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC"]
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+KERNELS = ("tip5_permutation_kernel", "tip5_sponge_rows_kernel")
 
 # Kernel launches since the last reset: one per launch, counted by the
 # wrapper right where it launches.
@@ -55,39 +57,75 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build() -> Path:
-    """Compile csrc/tip5.cu (if no library for this source exists yet)
-    and return the library's path."""
-    tag = hashlib.sha256(_SRC.read_bytes()
+def build(src: Path = _SRC) -> Path:
+    """Compile `src` (csrc/tip5.cu; tools/tip5_probe.py names other
+    copies of it to time them in turns), if no library for this source
+    exists yet, and return the library's path. ptxas's report (-v) is
+    kept beside it, see `ptxas_report`."""
+    src = Path(src)
+    tag = hashlib.sha256(src.read_bytes()
                          + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
     so = _BUILD_DIR / f"libtip5_{tag}.so"
     if so.exists():
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".tmp{os.getpid()}")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    so.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, so)
     return so
+
+
+def ptxas_report(so: Path | None = None) -> dict:
+    """Per kernel of a built library (the current source's by default):
+    registers a thread, spill stores and loads, stack and static shared
+    memory in bytes, as ptxas -v reported them at the build."""
+    text = Path(so or build()).with_suffix(".ptxas.txt").read_text()
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            cur = next((k for k in KERNELS if k in m.group(1)), None)
+            continue
+        if cur is None:
+            continue
+        rec = out.setdefault(cur, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            rec.update(stack=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            rec["smem"] = int(m[1]) if m else 0
+    return out
+
+
+def bind(so: Path):
+    """Load a built library and declare its C entry points."""
+    lib = ctypes.CDLL(str(so))
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.tip5_permutation_launch.argtypes = [vp, vp, i64, vp]
+    lib.tip5_permutation_launch.restype = ctypes.c_int
+    lib.tip5_sponge_rows_launch.argtypes = [vp, i64, i64, i64, i64, vp, vp]
+    lib.tip5_sponge_rows_launch.restype = ctypes.c_int
+    lib.tip5_error_string.argtypes = [ctypes.c_int]
+    lib.tip5_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _lib():
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, i64 = ctypes.c_void_p, ctypes.c_int64
-            lib.tip5_permutation_launch.argtypes = [vp, vp, i64, vp]
-            lib.tip5_permutation_launch.restype = ctypes.c_int
-            lib.tip5_sponge_rows_launch.argtypes = [vp, i64, i64, i64, i64,
-                                                    vp, vp]
-            lib.tip5_sponge_rows_launch.restype = ctypes.c_int
-            lib.tip5_error_string.argtypes = [ctypes.c_int]
-            lib.tip5_error_string.restype = ctypes.c_char_p
-            _LIB = lib
+            _LIB = bind(build())
     return _LIB
 
 
@@ -187,15 +225,23 @@ def _pow7(v):
     return gf.mul(gf.mul(v4, v2), v)
 
 
-def _mds(s):
-    """out_i = sum_k c_k * s_{(i - k) mod 16}, on 32-bit halves with one
-    128-bit reduction a lane."""
-    lo, hi = s & gf.MASK32, (s >> 32) & gf.MASK32
-    acc_lo = torch.zeros_like(s)
-    acc_hi = torch.zeros_like(s)
+def _mds_half(x):
+    """c * x for int64 32-bit halves x (16, ...), c =
+    tip5.MDS_MATRIX_FIRST_COLUMN: out_i = sum_k c_k x_{(i - k) mod 16} in
+    float64, as csrc/tip5.cu computes it on the FP64 pipe. Products are
+    below 2^48 and sums below 2^52, so every step is exact."""
+    xf = x.to(torch.float64)
+    acc = torch.zeros_like(xf)
     for k, c in enumerate(_MDS):
-        acc_lo += c * torch.roll(lo, k, dims=0)
-        acc_hi += c * torch.roll(hi, k, dims=0)
+        acc += c * torch.roll(xf, k, dims=0)
+    return acc.to(torch.int64)
+
+
+def _mds(s):
+    """out_i = sum_k c_k * s_{(i - k) mod 16}: both 32-bit halves
+    convolved (`_mds_half`), joined, one 128-bit reduction a lane."""
+    acc_lo = _mds_half(s & gf.MASK32)
+    acc_hi = _mds_half((s >> 32) & gf.MASK32)
     x_lo = acc_lo + (acc_hi << 32)
     carry = gf._ult(x_lo, acc_lo).to(torch.int64)
     x_hi = ((acc_hi >> 32) & gf.MASK32) + carry
