@@ -4,37 +4,52 @@
 Run from the root of a checkout on a machine with an NVIDIA card:
 
     python3 chip_smoke.py                 # every phase, as a release check
-    python3 chip_smoke.py --phases kernels
+    python3 chip_smoke.py --phases kernels,spin_65536
 
-Phases, in order; any failure exits non-zero and prints no result line:
+Phases, in order (`--phases` names in brackets); any failure exits
+non-zero and prints no result line:
 
 1. versions, the card's name and power limit, the build of both Tip5
    kernels from csrc/ (seconds printed) and ptxas's report for each
    (registers, spills, stack, shared memory);
-2. K1 (Tip5 permutation) against its plain torch version on the card
-   (2^18 random states, edge-value states, the MDS's worst-case states,
-   a ragged 2^18 + 3 batch) and 8 states against the host
+2. [kernels] K1 (Tip5 permutation) against its plain torch version on
+   the card (2^18 random states, edge-value states, the MDS's worst-case
+   states, a ragged 2^18 + 3 batch) and 8 states against the host
    `tip5.permutation_python`; kernel and plain times at B = 2^17, and
-   kernel times at every Merkle layer's batch, 2^0 .. 2^17, summed over
-   the K1 launches of a spin_32768 prove;
-3. K2 (Tip5 row sponge) against its plain version for 2^18 rows of 15,
-   273 and 379 elements, row-major and column-major (the commit stage's
-   layout), and a column-strided input, and a few rows against the host
-   `tip5.hash_varlen`; kernel times at all three widths, column-major
-   (their sum is K2's time per spin_32768 prove), plain time at 379;
-4. the main path on the card: `prove_program` on fibonacci input 85
-   (padded height 2^10) with seed bytes(range(32)), the proof digest held
-   against the JAX package's, `Stark.verify` accepting it and rejecting a
-   tampered word with a verification error;
-5. the main path at padded height 2^15 (`spin(15)`, LDT domain 2^18):
-   prove and verify.
+   kernel times at every Merkle layer's batch, 2^0 .. 2^18, summed over
+   the K1 launches of a spin_32768 and of a spin_65536 prove;
+3. [kernels] K2 (Tip5 row sponge) against its plain version for 2^18
+   rows of 15, 273 and 379 elements, row-major and column-major (the
+   commit stage's layout), a column-strided input, 2^17 rows of 12 (the
+   STIR leaf rows) and, column-major, 2^19 rows of 379, 273 and 15 (a
+   spin_65536 prove's commit launches), and a few rows against the host
+   `tip5.hash_varlen`; kernel times at all four widths, plain times at
+   379 and 12, and K2's time per spin_32768 and per spin_65536 prove
+   (every launch's shape timed);
+4. [fib_1024] the main path on the card: `prove_program` on fibonacci
+   input 85 (padded height 2^10, FRI) with seed bytes(range(32)), the
+   proof digest held against the JAX package's, `Stark.verify` accepting
+   it and rejecting a tampered word with a verification error;
+5. [spin_32768] the main path at padded height 2^15 (`spin(15)`, LDT
+   domain 2^18, FRI): prove and verify;
+6. [fib_1024_stir] `prove` with `Stark(ldt_choice="stir")` on fibonacci
+   input 85: the digest held against the JAX package's STIR proof,
+   verify, tamper check;
+7. [spin_65536] the main path at padded height 2^16 (`spin(16)`, LDT
+   domain 2^19), where `Stark` chooses STIR: prove, verify, tamper check;
+8. [witness] the device-resident witness (`main_witness_dev`,
+   `aux_witness_dev`) on the card for `u32_mix` and `spin(12)`, word for
+   word against the host oracle of tables/master.py, with the device and
+   host times at spin(12).
 
-The launch counts of both kernels are set to 0 just before phase 4 and
-read after phase 5; both must be above 0, and the spin_32768 prove must
-launch K1 once per Merkle layer, as the per-prove K1 total assumes.
-The line before the last is a JSON object with each kernel's numbers;
-the last line is the device record. Needs one card, no network;
-imports nothing of JAX.
+The launch counts of both kernels are set to 0 just before each proving
+path (phases 4-7) and read just after it; both must be above 0 on every
+path, and the spin_32768 and spin_65536 proves must launch K1 once per
+Merkle layer and K2 once per committed table and STIR tree, as the
+per-prove totals assume. The line before the
+last is a JSON object with each kernel's numbers (launches summed over
+the paths); the last line is the device record. Needs one card, no
+network; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -62,6 +77,13 @@ SEED = bytes(range(32))
 JAX_FIB85_DIGEST = (6144958900407217928, 9077105590016610808,
                     16174150112158250861, 17868824170144435741,
                     5525090009455519693)
+# The same for the JAX package's STIR proof of the same claim and seed:
+# the command above with Stark(ldt_choice="stir").
+JAX_FIB85_STIR_DIGEST = (2557357267674768290, 7933928826770184855,
+                         14971441563586756986, 17186831512452120839,
+                         5748930431668251739)
+PATHS = ("fib_1024", "spin_32768", "fib_1024_stir", "spin_65536")
+PHASES = ("kernels",) + PATHS + ("witness",)
 
 # Work of one Tip5 permutation in 32-bit integer multiplies (the H100's
 # integer pipe issues 64 of them per SM per clock; a 32 x 32 -> 64-bit
@@ -140,11 +162,31 @@ def worst_case_states():
     return np.array(cols, np.uint64).T.copy()
 
 
-def k1_batches_per_prove(log_domain=18, log_last=10):
-    """log2 of the batch of every K1 launch in a spin_32768 prove, one per
-    Merkle layer: the main, aux and quotient trees over the 2^18-row LDT
-    domain and the FRI trees over codewords of 2^18 down to 2^10 rows."""
-    trees = [log_domain] * 3 + list(range(log_domain, log_last - 1, -1))
+def ldt_tree_leaves(ldt):
+    """log2 leaf count of each Merkle tree the low-degree test builds: FRI
+    one per round's codeword (the initial domain, halved each round); STIR
+    one per round's leaf stacks (a k-th of a domain that halves each
+    round)."""
+    from triton_vm_tpu_torch.ldt.stir import Stir
+
+    log_l = ldt.initial_domain().length.bit_length() - 1
+    if isinstance(ldt, Stir):
+        log_k = ldt.folding_factor.bit_length() - 1
+        return [log_l - log_k - r for r in range(len(ldt.round_queries) + 1)]
+    return [log_l - r for r in range(ldt.num_rounds() + 1)]
+
+
+def k1_batches_per_prove(log2_height):
+    """log2 of the batch of every K1 launch in a prove at padded height
+    2^log2_height, one per Merkle layer: the main, aux and quotient trees
+    over the LDT domain and the low-degree test's own trees (spin_32768:
+    3 trees of 2^18 leaves and FRI's of 2^18 down to 2^10; spin_65536: 3
+    of 2^19 and STIR's of 2^17 down to 2^13)."""
+    from triton_vm_tpu_torch import Stark
+
+    ldt = Stark().ldt(1 << log2_height)
+    log_l = ldt.initial_domain().length.bit_length() - 1
+    trees = [log_l] * 3 + ldt_tree_leaves(ldt)
     return [k for m in trees for k in range(m)]
 
 
@@ -230,24 +272,28 @@ def phase_k1(rng, bound):
     bound_ms, bound_by = bound(2 * 16 * 8 * b, b)
     log(f"K1 ok (max_abs_err 0); B=2^17: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    # every Merkle layer's batch, 2^0 .. 2^17, for the per-prove total
+    # every Merkle layer's batch, 2^0 .. 2^18, for the per-prove totals
     by_batch = {}
-    for k in range(18):
+    for k in range(19):
         layer = gf.from_u64(random_field(rng, (16, 1 << k)), "cuda")
         by_batch[k] = (time_ms(lambda: tip5_cuda.permutation(layer),
                                20 if k > 12 else 200),
                        bound(2 * 16 * 8 * (1 << k), 1 << k)[0])
-    batches = k1_batches_per_prove()
-    prove_ms = sum(by_batch[k][0] for k in batches)
-    prove_bound_ms = sum(by_batch[k][1] for k in batches)
-    log(f"K1 per spin_32768 prove ({len(batches)} launches, one per Merkle "
-        f"layer): {prove_ms:.4f} ms, bound {prove_bound_ms:.4f} ms")
+    per_prove = {}
+    for label, log2_height in (("spin_32768", 15), ("spin_65536", 16)):
+        batches = k1_batches_per_prove(log2_height)
+        per_prove[label] = (sum(by_batch[k][0] for k in batches),
+                            sum(by_batch[k][1] for k in batches))
+        log(f"K1 per {label} prove ({len(batches)} launches, one per Merkle "
+            f"layer): {per_prove[label][0]:.4f} ms, bound "
+            f"{per_prove[label][1]:.4f} ms")
     return dict(name="tip5_permutation", route="cuda", source=SOURCE,
                 replaces="triton_vm_tpu/ops/tip5_pallas.py:157",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None,
                 ms_by_width={f"2^{k}": t for k, (t, _) in by_batch.items()},
-                per_prove_ms=prove_ms, per_prove_bound_ms=prove_bound_ms)
+                per_prove_ms={k: t for k, (t, _) in per_prove.items()},
+                per_prove_bound_ms={k: b for k, (_, b) in per_prove.items()})
 
 
 def phase_k2(rng, bound):
@@ -273,39 +319,80 @@ def phase_k2(rng, bound):
     strided = cols.T[::2]
     errs.append(max_abs_err(tip5_cuda.sponge_absorb_rows(strided),
                             tip5_cuda.sponge_absorb_rows_plain(strided)))
-    host = random_field(rng, (6, 379))
-    got = gf.to_u64(tip5_cuda.sponge_absorb_rows(gf.from_u64(host, "cuda")))
-    for j in range(6):
-        want = tip5.hash_varlen([int(x) for x in host[j]])
-        if [int(x) for x in got[:, j]] != want:
-            raise AssertionError(f"K2 disagrees with hash_varlen on row {j}")
+    # the STIR leaf rows: 4 XFEs flattened, 12 words, row-major
+    leaves = gf.from_u64(random_field(rng, (b // 2, 12)), "cuda")
+    errs.append(max_abs_err(tip5_cuda.sponge_absorb_rows(leaves),
+                            tip5_cuda.sponge_absorb_rows_plain(leaves)))
+    for host in (gf.to_u64(leaves[:4]), random_field(rng, (6, 379))):
+        got = gf.to_u64(tip5_cuda.sponge_absorb_rows(
+            gf.from_u64(host, "cuda")))
+        for j, row in enumerate(host):
+            if [int(x) for x in got[:, j]] != \
+                    tip5.hash_varlen([int(x) for x in row]):
+                raise AssertionError(f"K2 disagrees with hash_varlen on a "
+                                     f"row of {len(row)}, row {j}")
     err = max(errs)
     if err:
         raise AssertionError(f"K2 disagrees with its plain version: {err}")
+
+    def timed_bound(rows, reps):
+        # ceil((n + 1) / RATE) permutations a row, as the kernel runs
+        rb, n = rows.shape
+        return (time_ms(lambda: tip5_cuda.sponge_absorb_rows(rows), reps),
+                *bound(8 * rb * (n + 5), rb * ((n + tip5.RATE) // tip5.RATE)))
+
     # the three committed tables of a spin_32768 prove: main, aux, quotient
     by_width = {}
     for n, rows in col_major.items():
-        # ceil((n + 1) / RATE) permutations a row, as the kernel runs
-        perms = b * ((n + tip5.RATE) // tip5.RATE)
-        by_width[n] = (time_ms(lambda: tip5_cuda.sponge_absorb_rows(rows),
-                               5 if n > 100 else 40),
-                       *bound(8 * b * (n + 5), perms))
-        log(f"K2 2^18 x {n} column-major: kernel {by_width[n][0]:.4f} ms, "
-            f"bound {by_width[n][1]:.4f} ms ({by_width[n][2]})")
-    ms, bound_ms, bound_by = by_width[379]
+        by_width[str(n)] = timed_bound(rows, 5 if n > 100 else 40)
+    by_width["12"] = timed_bound(leaves, 40)
+    for n, (t, bms, by) in by_width.items():
+        log(f"K2 2^{(b if n != '12' else b // 2).bit_length() - 1} x {n}: "
+            f"kernel {t:.4f} ms, bound {bms:.4f} ms ({by})")
+    ms, bound_ms, bound_by = by_width["379"]
     plain_ms = time_ms(lambda: tip5_cuda.sponge_absorb_rows_plain(timed), 1)
-    prove_ms = sum(t for t, _, _ in by_width.values())
-    prove_bound_ms = sum(t for _, t, _ in by_width.values())
-    log(f"K2 ok (max_abs_err 0); 2^18 x 379: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms, bound {bound_ms:.3f} ms ({bound_by}); per "
-        f"spin_32768 prove (3 launches): {prove_ms:.3f} ms, bound "
-        f"{prove_bound_ms:.3f} ms")
+    plain12_ms = time_ms(
+        lambda: tip5_cuda.sponge_absorb_rows_plain(leaves), 1)
+    per_prove = {"spin_32768": [by_width[str(n)] for n in col_major]}
+    # spin_65536: the three tables at 2^19 rows, each held against the
+    # plain version, then the leaf rows of each STIR tree (2^17 down to
+    # 2^13), every launch's own shape
+    del col_major, timed
+    per_prove["spin_65536"] = []
+    for n in (379, 273, 15):
+        rows = gf.from_u64(random_field(rng, (n, 2 * b)), "cuda").T
+        errs.append(max_abs_err(tip5_cuda.sponge_absorb_rows(rows),
+                                tip5_cuda.sponge_absorb_rows_plain(rows)))
+        if errs[-1]:
+            raise AssertionError(f"K2 disagrees with its plain version at "
+                                 f"2^19 x {n}: {errs[-1]}")
+        per_prove["spin_65536"].append(timed_bound(rows, 3 if n > 100 else 20))
+        del rows
+    from triton_vm_tpu_torch import Stark
+
+    for k in ldt_tree_leaves(Stark().ldt(1 << 16)):
+        per_prove["spin_65536"].append(timed_bound(leaves[:1 << k], 40))
+    totals = {label: (sum(t for t, _, _ in v), sum(bms for _, bms, _ in v))
+              for label, v in per_prove.items()}
+    err = max(errs)
+    log(f"K2 ok (max_abs_err 0, also at 2^19 x 379, 273 and 15); 2^18 x "
+        f"379: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}); 2^17 x 12: kernel "
+        f"{by_width['12'][0]:.4f} ms, plain {plain12_ms:.2f} ms, bound "
+        f"{by_width['12'][1]:.4f} ms ({by_width['12'][2]})")
+    for label, (t, bms) in totals.items():
+        log(f"K2 per {label} prove ({len(per_prove[label])} launches): "
+            f"{t:.3f} ms, bound {bms:.3f} ms")
     return dict(name="tip5_sponge_rows", route="cuda", source=SOURCE,
                 replaces="triton_vm_tpu/ops/tip5_pallas.py:233",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None,
-                ms_by_width={str(n): t for n, (t, _, _) in by_width.items()},
-                per_prove_ms=prove_ms, per_prove_bound_ms=prove_bound_ms)
+                ms_by_width={n: t for n, (t, _, _) in by_width.items()},
+                bound_ms_by_width={n: bms for n, (_, bms, _)
+                                   in by_width.items()},
+                plain_ms_12=plain12_ms,
+                per_prove_ms={k: t for k, (t, _) in totals.items()},
+                per_prove_bound_ms={k: bms for k, (_, bms) in totals.items()})
 
 
 def _launches_since(before):
@@ -314,11 +401,12 @@ def _launches_since(before):
     return {k: v - before[k] for k, v in tip5_cuda.launches.items()}
 
 
-def prove_and_verify(label, program, public_input):
-    """The main path on the card: prove_program, then verify, then a
-    tampered proof word must be rejected with a verification error (any
-    other exception, such as a failed kernel launch, fails the run).
-    Returns the proof and the kernel launches of the prove and of the
+def prove_and_verify(label, program, public_input, ldt_choice=None):
+    """The main path on the card: prove_program (or, for an LDT chosen by
+    the caller, `prove` with that Stark), then verify, then a tampered
+    proof word must be rejected with a verification error (any other
+    exception, such as a failed kernel launch, fails the run). Returns the
+    Stark, the proof and the kernel launches of the prove and of the
     (accepting) verify."""
     import torch
 
@@ -333,10 +421,23 @@ def prove_and_verify(label, program, public_input):
     before = dict(tip5_cuda.launches)
     profiler.start(label)
     t0 = time.perf_counter()
-    stark, claim, proof = tvm.prove_program(program, public_input,
-                                            seed=SEED, device="cuda")
+    if ldt_choice is None:
+        stark, claim, proof = tvm.prove_program(program, public_input,
+                                                seed=SEED, device="cuda")
+    else:
+        stark = tvm.Stark(ldt_choice=ldt_choice, device="cuda")
+        _, output = tvm.VM.trace_execution(program,
+                                           tvm.PublicInput(public_input))
+        claim = (tvm.Claim.about_program(program).with_input(public_input)
+                 .with_output(output))
+        proof = tvm.prove(stark, claim, program, seed=SEED)
     prove_s = time.perf_counter() - t0
-    stages = profiler.finish().spans()
+    profile = profiler.finish()
+    stages = profile.spans()
+    # spans opened inside a stage, as "stage/span"
+    nested = {f"{profile.tasks[t.parent].name}/{t.name}":
+              round(t.total_duration, 4)
+              for t in profile.tasks if t.parent is not None}
     launches = {"prove": _launches_since(before)}
     before = dict(tip5_cuda.launches)
     t0 = time.perf_counter()
@@ -361,52 +462,146 @@ def prove_and_verify(label, program, public_input):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"{label} stages (s): " + json.dumps(
         {name: round(sec, 4) for name, sec, _ in stages}))
+    if nested:
+        log(f"{label} spans within stages (s): " + json.dumps(nested))
     log(f"{label} kernel launches: " + json.dumps(launches))
-    return proof, launches
+    return stark, proof, launches
 
 
-def phase_main_path(phases):
-    """Both workloads of the main path, with every launch count set to 0
-    just before and read just after. Returns the counts."""
+def check_digest(label, proof, want):
     from triton_vm_tpu_torch.crypto import tip5
+
+    w = proof.words
+    digest = tuple(tip5.hash_varlen([len(w) + 1, len(w)] + w))
+    if digest != want:
+        raise AssertionError(f"{label} proof digest {digest} != the JAX "
+                             f"package's {want}")
+    log(f"{label} proof digest equals the JAX package's")
+
+
+def check_spin(label, log2_height, stark, proof, launches):
+    """A spin proof reached its padded height, with the LDT the default
+    Stark chooses there, and launched K1 once per Merkle layer and K2 once
+    per committed table and STIR tree, as the per-prove totals assume."""
+    from triton_vm_tpu_torch.ldt.stir import Stir
+
+    if proof.padded_height() != 1 << log2_height:
+        raise AssertionError(f"{label} did not reach padded height "
+                             f"2^{log2_height}")
+    ldt = stark.ldt(proof.padded_height())
+    log(f"{label}: low-degree test {type(ldt).__name__}")
+    if isinstance(ldt, Stir) != (log2_height >= 16):
+        raise AssertionError(f"{label}: Stark chose {type(ldt).__name__}")
+    k1 = launches["prove"]["tip5_permutation"]
+    if k1 != len(k1_batches_per_prove(log2_height)):
+        raise AssertionError(f"{label} launched K1 {k1} times, not once "
+                             "per Merkle layer as the per-prove K1 total "
+                             "assumes")
+    k2 = launches["prove"]["tip5_sponge_rows"]
+    want_k2 = 3 + (len(ldt_tree_leaves(ldt)) if isinstance(ldt, Stir) else 0)
+    if k2 != want_k2:
+        raise AssertionError(f"{label} launched K2 {k2} times, not "
+                             f"{want_k2}")
+
+
+def drive_path(name):
+    """One proving path of the main path, with every launch count set to
+    0 just before it and read just after; every kernel must have been
+    launched. Returns the counts."""
     from triton_vm_tpu_torch.models import example_programs as ex
     from triton_vm_tpu_torch.ops import tip5_cuda
 
     tip5_cuda.reset_launch_counts()
-    if "fib_1024" in phases:
-        proof, _ = prove_and_verify("fib_1024", ex.fibonacci(), [85])
-        w = proof.words
-        digest = tuple(tip5.hash_varlen([len(w) + 1, len(w)] + w))
-        if digest != JAX_FIB85_DIGEST:
-            raise AssertionError(f"fib_1024 proof digest {digest} != the "
-                                 f"JAX package's {JAX_FIB85_DIGEST}")
-        log("fib_1024 proof digest equals the JAX package's")
-    if "spin_32768" in phases:
-        program, iterations = ex.spin(15)
-        proof, launches = prove_and_verify("spin_32768", program,
-                                           [iterations])
-        if proof.padded_height() != 1 << 15:
-            raise AssertionError("spin(15) did not reach padded height 2^15")
-        k1 = launches["prove"]["tip5_permutation"]
-        if k1 != len(k1_batches_per_prove()):
-            raise AssertionError(f"spin_32768 launched K1 {k1} times, not "
-                                 "once per Merkle layer as the per-prove "
-                                 "K1 total assumes")
-    total = dict(tip5_cuda.launches)
-    log(f"kernel launches on the main path, in all: {json.dumps(total)}")
-    for name, n in total.items():
+    if name == "fib_1024":
+        _, proof, _ = prove_and_verify(name, ex.fibonacci(), [85])
+        check_digest(name, proof, JAX_FIB85_DIGEST)
+    elif name == "fib_1024_stir":
+        _, proof, _ = prove_and_verify(name, ex.fibonacci(), [85],
+                                       ldt_choice="stir")
+        check_digest(name, proof, JAX_FIB85_STIR_DIGEST)
+    else:
+        log2_height = {"spin_32768": 15, "spin_65536": 16}[name]
+        program, iterations = ex.spin(log2_height)
+        stark, proof, launches = prove_and_verify(name, program,
+                                                  [iterations])
+        check_spin(name, log2_height, stark, proof, launches)
+    counts = dict(tip5_cuda.launches)
+    log(f"{name} kernel launches, prove and verify: {json.dumps(counts)}")
+    for kernel, n in counts.items():
         if n <= 0:
-            raise AssertionError(f"{name} was never launched on the main path")
-    return total
+            raise AssertionError(f"{kernel} was never launched on {name}")
+    return counts
+
+
+def phase_witness():
+    """The device-resident witness on the card against the host oracle
+    (tables/master.py: fill_derived_main_columns, extend_host,
+    fill_derived_aux_columns and the randomizer write), word for word, on
+    u32_mix (first, so the AIR and the tapes are built before spin(12) is
+    timed) and on spin(12)."""
+    import numpy as np
+    import torch
+
+    import triton_vm_tpu_torch as tvm
+    from triton_vm_tpu_torch.air.challenges import SAMPLE_COUNT, Challenges
+    from triton_vm_tpu_torch.models import example_programs as ex
+    from triton_vm_tpu_torch.ops import gf
+    from triton_vm_tpu_torch.tables import extend_device as ed
+    from triton_vm_tpu_torch.tables import master as mt
+
+    rng = np.random.default_rng(17)
+    spin_program, spin_iterations = ex.spin(12)
+    for label, program, public_input in (
+            ("u32_mix", ex.u32_mix(), [50]),
+            ("spin_4096", spin_program, [spin_iterations])):
+        aet, output = tvm.VM.trace_execution(program,
+                                             tvm.PublicInput(public_input))
+        claim = (tvm.Claim.about_program(program).with_input(public_input)
+                 .with_output(output))
+        h = aet.padded_height()
+        main_air = mt.fill_main_table(aet, padded_height=h)
+        challenges = Challenges(
+            [tuple(int(c) for c in row)
+             for row in random_field(rng, (SAMPLE_COUNT, 3))], claim)
+        randomizer = random_field(rng, (h, 3))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        main_dev = ed.main_witness_dev(main_air, "cuda")
+        aux_dev = ed.aux_witness_dev(main_dev, challenges, randomizer)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        main = main_air.copy()
+        mt.fill_derived_main_columns(main)
+        aux = mt.extend_host(main, challenges)
+        mt.fill_derived_aux_columns(main, aux, challenges.challenges)
+        aux[:, mt.NUM_AUX - 1, :] = randomizer
+        host_s = time.perf_counter() - t0
+
+        got_main = gf.to_u64(main_dev).T
+        got_aux = gf.to_u64(aux_dev).transpose(2, 0, 1)
+        bad = ([f"main {c}" for c in range(mt.NUM_MAIN)
+                if not np.array_equal(got_main[:, c], main[:, c])]
+               + [f"aux {c}" for c in range(mt.NUM_AUX)
+                  if not np.array_equal(got_aux[:, c], aux[:, c])])
+        if bad:
+            raise AssertionError(f"witness {label}: the device witness "
+                                 f"differs from the host oracle in {bad}")
+        log(f"witness {label} (padded height {h}): 379 main and 91 aux "
+            f"columns equal the host oracle; device {dev_s:.4f} s, host "
+            f"{host_s:.4f} s")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,fib_1024,spin_32768",
-                    help="comma-separated subset of: kernels, fib_1024, "
-                         "spin_32768")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of: " + ", ".join(PHASES))
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    if not phases <= set(PHASES):
+        ap.error(f"unknown phases: {sorted(phases - set(PHASES))}")
 
     import torch
 
@@ -430,8 +625,15 @@ def main(argv=None):
         bound = Bound()
         kernels = [phase_k1(rng, bound), phase_k2(rng, bound)]
     launches = {}
-    if phases & {"fib_1024", "spin_32768"}:
-        launches = phase_main_path(phases)
+    for path in PATHS:
+        if path in phases:
+            for kernel, n in drive_path(path).items():
+                launches[kernel] = launches.get(kernel, 0) + n
+    if launches:
+        log(f"kernel launches on the main path, all paths: "
+            f"{json.dumps(launches)}")
+    if "witness" in phases:
+        phase_witness()
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
         k["regs"] = report[k["name"] + "_kernel"]["registers"]

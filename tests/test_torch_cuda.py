@@ -1,6 +1,7 @@
 """Card-only checks of the port: each CUDA kernel against its plain torch
-version on the card, and the fib(10) proof on the card against the digest
-pinned for the JAX package. Every test is marked `cuda` and skips without
+version on the card, the device witness and a STIR transcript on the card
+against the same computation on the CPU, and the fib(10) proof on the card
+against the digest pinned for the JAX package. Every test is marked `cuda` and skips without
 a card. This file imports nothing of JAX, so on a machine without it run
 `python -m pytest --noconftest tests/test_torch_cuda.py -q`."""
 
@@ -86,3 +87,47 @@ def test_fib10_proof_on_the_card_hashes_to_pinned_digest(cuda):
         15137373578292407606, 15772038778546270844)
     assert all(n > 0 for n in tip5_cuda.launches.values())
     assert tvm.verify(stark, claim, proof)
+
+
+def test_witness_on_the_card_equals_cpu(cuda):
+    from triton_vm_tpu_torch.models import example_programs as ex
+    from triton_vm_tpu_torch.tables import extend_device as ed
+    from triton_vm_tpu_torch.tables import master as mt
+    from triton_vm_tpu_torch.vm.machine import VM, PublicInput
+
+    aet, _ = VM.trace_execution(ex.u32_mix(), PublicInput([50]))
+    main_air = mt.fill_main_table(aet)
+    challenges = [tuple(int(c) for c in row) for row in _field(63, (63, 3))]
+    randomizer = _field(5, (main_air.shape[0], 3))
+    out = {}
+    for dev in ("cpu", cuda):
+        main = ed.main_witness_dev(main_air, dev)
+        out[str(dev)] = (gf.to_u64(main), gf.to_u64(
+            ed.aux_witness_dev(main, challenges, randomizer)))
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert np.array_equal(got, want)
+
+
+def test_stir_transcript_on_the_card_equals_cpu(cuda):
+    """Two full STIR rounds: K2 on leaf rows of 12, K1 trees, the batched
+    point evaluation and the NTT re-evaluation, all on the card."""
+    from triton_vm_tpu_torch.ldt.stir import Stir, StirParameters
+    from triton_vm_tpu_torch.ops import gfx, ntt
+    from triton_vm_tpu_torch.stark.proof_stream import ProofStream
+
+    stir = Stir(StirParameters(security_level=20, log2_folding_factor=2,
+                               log2_initial_expansion_factor=2,
+                               log2_high_degree_bound=11))
+    assert len(stir.round_queries) == 2
+    coeffs = np.zeros((stir.domain.length, 3), np.uint64)
+    coeffs[:stir.params.max_degree() + 1] = _field(
+        21, (stir.params.max_degree() + 1, 3))
+    words = {}
+    for dev in ("cpu", cuda):
+        cw = ntt.ntt(gfx.from_u64(coeffs, dev), stir.domain.offset)
+        ps = ProofStream()
+        indices = stir.prove(cw, ps)
+        words[str(dev)] = (indices, ps.to_proof().words)
+    assert words["cuda"] == words["cpu"]
+    indices, _ = stir.verify(ProofStream.decode(words["cuda"][1]), cuda)
+    assert indices == words["cuda"][0]

@@ -78,7 +78,7 @@ def fib_trace():
     challenges = Challenges(
         [tuple(int(c) for c in row) for row in
          rng.integers(0, P, (SAMPLE_COUNT, 3), dtype=np.uint64)], claim)
-    aux = mt.extend(main, challenges)
+    aux = mt.extend_host(main, challenges)
     mt.fill_derived_aux_columns(main, aux, challenges.challenges)
     aux[:, prover.NUM_AUX - 1, :] = rng.integers(0, P, (h, 3),
                                                  dtype=np.uint64)

@@ -1,0 +1,208 @@
+"""The port's STIR low-degree test (triton_vm_tpu_torch.ldt.stir) against
+the JAX package's: parameter derivation, transcripts word for word,
+cross-package verification, rejections, the batched point evaluation, the
+device zerofier, and a whole fib(10) STIR proof on the CPU hashed to the
+JAX package's digest."""
+
+import numpy as np
+import pytest
+import torch
+
+import triton_vm_tpu_torch as tvm
+from triton_vm_tpu.fields.bfe import P
+from triton_vm_tpu.ldt.stir import Stir as JStir
+from triton_vm_tpu.ldt.stir import StirParameters as JStirParameters
+from triton_vm_tpu.stark.proof_stream import ProofStream as JProofStream
+from triton_vm_tpu.stark.prover import Stark as JStark
+from triton_vm_tpu_torch.crypto import tip5
+from triton_vm_tpu_torch.fields import poly, xfe
+from triton_vm_tpu_torch.ldt import stir as st
+from triton_vm_tpu_torch.ldt.fri import LdtError
+from triton_vm_tpu_torch.models import example_programs as ex
+from triton_vm_tpu_torch.ops import gfx, ntt
+from triton_vm_tpu_torch.stark.arithmetic_domain import Domain
+from triton_vm_tpu_torch.stark.proof_stream import ProofStream
+
+torch.set_num_threads(2)
+
+SEED = bytes(range(32))
+# Proof digest tip5.hash_varlen([len(w) + 1, len(w)] + w) of the JAX
+# package's STIR proof of fibonacci input 10 with seed bytes(range(32)),
+# computed on the CPU with (the JAX STIR end-to-end test is `slow`):
+#   JAX_PLATFORMS=cpu python -c "
+#   from triton_vm_tpu.models import example_programs as ex
+#   from triton_vm_tpu.stark.proof_stream import Claim
+#   from triton_vm_tpu.stark.prover import Stark
+#   from triton_vm_tpu.vm.machine import VM, PublicInput
+#   from triton_vm_tpu.crypto import tip5
+#   p = ex.fibonacci(); aet, out = VM.trace_execution(p, PublicInput([10]))
+#   c = Claim.about_program(p).with_input([10]).with_output(out)
+#   w = Stark(ldt_choice='stir').prove(c, aet, seed=bytes(range(32))).words
+#   print(tip5.hash_varlen([len(w) + 1, len(w)] + w))"
+JAX_STIR_FIB10_DIGEST = (8250308692570386992, 6453021769372292027,
+                         326252916234513582, 2375813373481364893,
+                         15531984184678886719)
+
+# (security level, log2 high-degree bound): tests/test_stir.py:68's
+# parameters (no full round), and a pair with two full rounds
+PARAMS = [(64, 8), (20, 11)]
+
+
+@pytest.mark.parametrize("log2_height", range(8, 21))
+def test_parameters_equal_jax_stark_stir(log2_height):
+    got = tvm.Stark(device="cpu").stir(1 << log2_height)
+    want = JStark().stir(1 << log2_height)
+    assert got.params.log2_high_degree_bound == \
+        want.params.log2_high_degree_bound
+    assert (got.domain.length, got.domain.offset) == \
+        (want.domain.length, want.domain.offset)
+    assert got.round_queries == want.round_queries
+    assert got.final_num_in_domain_queries == \
+        want.final_num_in_domain_queries
+    assert got.final_degree == want.final_degree
+    assert got.num_first_round_queries() == want.num_first_round_queries()
+
+
+def test_ldt_is_stir_from_height_2_16():
+    stark = tvm.Stark(device="cpu")
+    assert isinstance(stark.ldt(1 << 15), tvm.Fri)
+    assert isinstance(stark.ldt(1 << 16), st.Stir)
+    assert isinstance(tvm.Stark(ldt_choice="stir", device="cpu").ldt(256),
+                      st.Stir)
+    assert isinstance(tvm.Stark(soundness="conjectured",
+                                device="cpu").ldt(1 << 16), tvm.Fri)
+
+
+def _stirs(security, log2_bound):
+    args = dict(security_level=security, log2_folding_factor=2,
+                log2_initial_expansion_factor=2,
+                log2_high_degree_bound=log2_bound)
+    return st.Stir(st.StirParameters(**args)), JStir(JStirParameters(**args))
+
+
+def _codeword(stir, degree, seed):
+    """A seeded codeword of the given degree on the initial domain: the
+    port's XFE tensor (3, n) and the same values as host tuples."""
+    rng = np.random.default_rng(seed)
+    coeffs = np.zeros((stir.domain.length, 3), np.uint64)
+    coeffs[:degree + 1] = rng.integers(0, P, (degree + 1, 3),
+                                       dtype=np.uint64)
+    cw = ntt.ntt(gfx.from_u64(coeffs), stir.domain.offset)
+    return cw, gfx.to_tuples(cw)
+
+
+@pytest.fixture(scope="module", params=PARAMS, ids=lambda p: f"{p[0]}-{p[1]}")
+def transcripts(request):
+    """One low-degree codeword proven by each package: the JAX package's
+    host round loop (the oracle) and the port's device loop."""
+    stir, jstir = _stirs(*request.param)
+    cw, cw_host = _codeword(stir, stir.params.max_degree(), seed=21)
+    ps = ProofStream()
+    indices = stir.prove(cw, ps)
+    jps = JProofStream()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TVM_STIR_DEVICE", "0")
+        jindices = jstir.prove(list(cw_host), jps)
+    return dict(stir=stir, jstir=jstir, cw_host=cw_host, indices=indices,
+                words=ps.to_proof().words, jindices=jindices,
+                jwords=[int(w) for w in jps.to_proof().words])
+
+
+def test_prove_transcript_equals_jax_host_loop(transcripts):
+    assert transcripts["indices"] == transcripts["jindices"]
+    assert transcripts["words"] == transcripts["jwords"]
+
+
+def test_port_verifier_accepts_jax_transcript(transcripts):
+    stir = transcripts["stir"]
+    indices, partial = stir.verify(
+        ProofStream.decode(transcripts["jwords"]), "cpu")
+    assert indices == transcripts["jindices"]
+    assert partial == [tuple(transcripts["cw_host"][i]) for i in indices]
+
+
+def test_jax_verifier_accepts_port_transcript(transcripts):
+    jstir = transcripts["jstir"]
+    indices, partial = jstir.verify(JProofStream.decode(transcripts["words"]))
+    assert indices == transcripts["indices"]
+    assert [tuple(int(c) for c in x) for x in partial] == \
+        [tuple(transcripts["cw_host"][i]) for i in indices]
+
+
+@pytest.mark.parametrize("params", PARAMS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_rejects_high_degree_codeword(params):
+    stir, _ = _stirs(*params)
+    cw, _ = _codeword(stir, stir.params.max_degree() + 1, seed=3)
+    ps = ProofStream()
+    stir.prove(cw, ps)
+    with pytest.raises(LdtError):
+        stir.verify(ProofStream.decode(ps.to_proof().words), "cpu")
+
+
+def test_rejects_tampered_word(transcripts):
+    words = list(transcripts["words"])
+    words[len(words) // 2] = (words[len(words) // 2] + 1) % P
+    with pytest.raises(Exception):
+        transcripts["stir"].verify(ProofStream.decode(words), "cpu")
+
+
+@pytest.mark.parametrize("n", [128, 1000, 1024, 4096])
+def test_eval_folded_at_equals_poly_evaluate(n):
+    rng = np.random.default_rng(n)
+    coeffs = rng.integers(0, P, (n, 3), dtype=np.uint64)
+    points = [tuple(int(c) for c in rng.integers(0, P, 3, dtype=np.uint64))
+              for _ in range(5)]
+    points.append(xfe.lift(int(rng.integers(0, P, dtype=np.uint64))))
+    got = st._eval_folded_at(gfx.from_u64(coeffs), points)
+    host = [tuple(int(c) for c in row) for row in coeffs]
+    assert got == [poly.evaluate(host, x, xfe) for x in points]
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 16, 33])
+def test_zerofier_on_domain_equals_host_zerofier(m, monkeypatch):
+    """The device zerofier of m points against `poly.zerofier` evaluated at
+    every point of a coset, in column blocks of 64 factors, so that the
+    domain spans several blocks."""
+    monkeypatch.setattr(st, "_ZEROFIER_BLOCK_ELEMS", 64)
+    rng = np.random.default_rng(m)
+    points = [tuple(int(c) for c in rng.integers(0, P, 3, dtype=np.uint64))
+              for _ in range(m - 1)]
+    points.append(xfe.lift(int(rng.integers(0, P, dtype=np.uint64))))
+    domain = Domain(128, 7)
+    got = gfx.to_tuples(st._zerofier_on_domain_dev(points, domain, "cpu"))
+    z = poly.zerofier(points, xfe)
+    assert got == [poly.evaluate(z, xfe.lift(domain.value(i)), xfe)
+                   for i in range(domain.length)]
+
+
+def test_fold_device_equals_fold_polynomial():
+    rng = np.random.default_rng(5)
+    coeffs = rng.integers(0, P, (64, 3), dtype=np.uint64)
+    r = tuple(int(c) for c in rng.integers(0, P, 3, dtype=np.uint64))
+    got = gfx.to_tuples(st._fold_device(gfx.from_u64(coeffs), 4, r))
+    host = [tuple(int(c) for c in row) for row in coeffs]
+    assert got == st.Stir.fold_polynomial(host, 4, r)
+
+
+@pytest.fixture(scope="module")
+def fib10_stir():
+    stark = tvm.Stark(ldt_choice="stir", device="cpu")
+    program = ex.fibonacci()
+    aet, output = tvm.VM.trace_execution(program, tvm.PublicInput([10]))
+    claim = tvm.Claim.about_program(program).with_input([10]) \
+        .with_output(output)
+    return stark, claim, stark.prove(claim, aet, seed=SEED)
+
+
+def test_fib10_stir_proof_hashes_to_jax_digest(fib10_stir):
+    _, _, proof = fib10_stir
+    w = proof.words
+    assert tuple(tip5.hash_varlen([len(w) + 1, len(w)] + w)) == \
+        JAX_STIR_FIB10_DIGEST
+
+
+def test_fib10_stir_proof_verifies_and_fri_stark_rejects_it(fib10_stir):
+    stark, claim, proof = fib10_stir
+    assert stark.verify(claim, proof)
+    assert not tvm.verify(tvm.Stark(ldt_choice="fri", device="cpu"), claim,
+                          proof)

@@ -5,12 +5,14 @@ length, max degree, FRI setup), the DEEP-ALI proving pipeline
 (stark.rs:331-719) and verification (stark.rs:1388-1763). The counterpart
 of `triton_vm_tpu.stark.prover`, whose proof words it reproduces.
 
-Compute placement: LDE, row hashing and Merkle trees, the quotient tapes
-(air/compile.py), out-of-domain rows, the DEEP combination and FRI run on
-the prover's device (a CUDA card unless the caller asks for the CPU);
-witness generation, aux extension, Fiat-Shamir and randomness are on the
-host. The host <-> device boundary is numpy uint64 <-> int64 tensors with
-the same bit patterns (ops/gf.py).
+Compute placement: the derived main columns, the aux extension
+(tables/extend_device.py), LDE, row hashing and Merkle trees, the quotient
+tapes (air/compile.py), out-of-domain rows, the DEEP combination and the
+low-degree test (FRI or STIR) run on the prover's device (a CUDA card
+unless the caller asks for the CPU); the main table's fill from the
+execution trace, Fiat-Shamir and randomness are on the host. The host <->
+device boundary is numpy uint64 <-> int64 tensors with the same bit
+patterns (ops/gf.py).
 """
 
 from __future__ import annotations
@@ -32,7 +34,9 @@ from ..crypto import merkle
 from ..fields import bfe, xfe
 from ..fields.bfe import P
 from ..ldt.fri import Fri, FriParameters
+from ..ldt.stir import Stir, StirParameters
 from ..ops import gf, gfx, kernels, ntt, tip5_kernel
+from ..tables import extend_device
 from ..tables import master as mt
 from ..utils import profiler as _profiler
 from .arithmetic_domain import Domain
@@ -178,9 +182,9 @@ class Stark:
         return smallest_domain - 1
 
     @staticmethod
-    def num_trace_randomizers(fri: Fri) -> int:
+    def num_trace_randomizers(ldt) -> int:
         # h = t + k*e*f + 1 (stark.rs:2083-2089)
-        return fri.num_first_round_queries() + NUM_QUOTIENT_SEGMENTS * 3 * 2 + 1
+        return ldt.num_first_round_queries() + NUM_QUOTIENT_SEGMENTS * 3 * 2 + 1
 
     def fri(self, padded_height: int) -> Fri:
         log2_ph = max(padded_height, 1).bit_length() - 1
@@ -199,32 +203,50 @@ class Stark:
                 return fri
         raise ProvingError("no suitable FRI parameters found")
 
+    def stir(self, padded_height: int) -> Stir:
+        """Derive a usable STIR instance (stark.rs:2007-2060): k = 4, high
+        degree bound grown until the initial domain covers the randomized
+        trace times the expansion factor."""
+        log2_ph = max(padded_height, 1).bit_length() - 1
+        log2_bound = log2_ph
+        for _ in range(33):
+            log2_bound += 1
+            stir = Stir(StirParameters(
+                security_level=self.security_level,
+                log2_folding_factor=2,
+                log2_initial_expansion_factor=self.log2_ldt_expansion_factor,
+                log2_high_degree_bound=log2_bound,
+                soundness=self.soundness))
+            ntr = self.num_trace_randomizers(stir)
+            rand_len = self.randomized_trace_len(padded_height, ntr)
+            if stir.initial_domain().length >= rand_len * (
+                    1 << self.log2_ldt_expansion_factor):
+                return stir
+        raise ProvingError("no suitable STIR parameters found")
+
     def ldt(self, padded_height: int):
         """Pick the low-degree test (stark.rs:1942-1958): FRI below padded
         height 2^16 (proven regime) / 2^17 (conjectured regime), STIR
-        above; `ldt_choice` overrides. This package has FRI only."""
+        above; `ldt_choice` overrides."""
         choice = self.ldt_choice
         if choice is None:
             log2_ph = max(padded_height, 1).bit_length() - 1
             cutoff = 16 if self.soundness == "proven" else 17
             choice = "fri" if log2_ph < cutoff else "stir"
-        if choice == "stir":
-            raise NotImplementedError(
-                "STIR (padded height 2^16 and above, or ldt_choice='stir') "
-                "is not ported yet: ROADMAP.md, port queue 'STIR'")
-        return self.fri(padded_height)
+        return self.fri(padded_height) if choice == "fri" \
+            else self.stir(padded_height)
 
     def derive_domains(self, padded_height):
-        fri = self.ldt(padded_height)
-        ntr = self.num_trace_randomizers(fri)
+        ldt = self.ldt(padded_height)
+        ntr = self.num_trace_randomizers(ldt)
         rand_len = self.randomized_trace_len(padded_height, ntr)
         max_deg = self.max_degree(padded_height, ntr)
         trace = Domain(rand_len // 2)
         randomized_trace = Domain(rand_len)
-        ldt = fri.initial_domain()
+        ldt_dom = ldt.initial_domain()
         q_len = 1 << (max_deg - 1).bit_length()  # next_power_of_two
-        quotient = Domain(q_len, ldt.offset)
-        return fri, ntr, trace, randomized_trace, quotient, ldt
+        quotient = Domain(q_len, ldt_dom.offset)
+        return ldt, ntr, trace, randomized_trace, quotient, ldt_dom
 
     def prove(self, claim: Claim, aet, seed: bytes = None) -> Proof:
         return Prover(self, seed).prove(claim, aet)
@@ -254,11 +276,13 @@ class Prover:
     def _prove(self, claim: Claim, aet) -> Proof:
         stark = self.parameters
         dev = stark.device
+        # the domains; the first proof of a process also builds the AIR
+        _trace("setup", "setup", dev)
         proof_stream = ProofStream()
         proof_stream.alter_fiat_shamir_state_with(claim.encode())
 
         padded_height = aet.padded_height()
-        fri, ntr, trace_dom, rand_dom, quot_dom, ldt_dom = \
+        ldt, ntr, trace_dom, rand_dom, quot_dom, ldt_dom = \
             stark.derive_domains(padded_height)
         proof_stream.enqueue(ProofItem(
             "Log2PaddedHeight", padded_height.bit_length() - 1))
@@ -277,13 +301,12 @@ class Prover:
 
         # ------------------------------------------------------ main table
         _trace("fill main", "witness", dev)
-        main = mt.fill_main_table(aet, padded_height=h)
-        mt.fill_derived_main_columns(main)
+        main = extend_device.main_witness_dev(
+            mt.fill_main_table(aet, padded_height=h), dev)    # (NM, h)
         main_rand = _drbg_bfes_rows(self.seed, range(NUM_MAIN), ntr)
 
         _trace("main LDE", "LDE", dev)
-        main_lde = _commit_bfe(gf.from_u64(main.T, dev),
-                               gf.from_u64(main_rand, dev), trace_dom,
+        main_lde = _commit_bfe(main, gf.from_u64(main_rand, dev), trace_dom,
                                eval_dom)                      # (NM, E)
 
         _trace("main merkle", "hash", dev)
@@ -294,18 +317,17 @@ class Prover:
 
         # ------------------------------------------------------- aux table
         _trace("extend aux", "witness", dev)
-        aux = mt.extend(main, challenges)
-        mt.fill_derived_aux_columns(main, aux, challenges.challenges)
-        del main
-        aux[:, NUM_AUX - 1, :] = _drbg_xfes_rows(
-            self.seed, [NUM_MAIN + NUM_AUX], h)[0]
+        aux = extend_device.aux_witness_dev(
+            main, challenges,
+            _drbg_xfes_rows(self.seed, [NUM_MAIN + NUM_AUX], h)[0])
+        del main                                      # aux: (NA, 3, h)
         aux_rand = _drbg_xfes_rows(
             self.seed, range(NUM_MAIN, NUM_MAIN + NUM_AUX), ntr)
 
         _trace("aux LDE", "LDE", dev)
         # (NA, 3, E) storage: row k of the flattened (3 NA, E) view is
         # component k % 3 of column k // 3, the committed row order
-        aux_store = _commit_bfe(gf.from_u64(aux.transpose(1, 2, 0), dev),
+        aux_store = _commit_bfe(aux,
                                 gf.from_u64(aux_rand.transpose(0, 2, 1), dev),
                                 trace_dom, eval_dom)          # (NA, 3, E)
         del aux
@@ -371,7 +393,7 @@ class Prover:
         proof_stream.enqueue(ProofItem("OutOfDomainQuotientSegments",
                                        ood_quot_r))
 
-        # --------------------------------------- combination + DEEP + FRI
+        # ----------------------------------------- combination + DEEP + LDT
         weights = _sample_combination_weights(proof_stream)
         short_dom = ldt_dom if L <= Q else quot_dom
 
@@ -401,10 +423,10 @@ class Prover:
             gf.powers(short_dom.generator, S, short_dom.offset, dev),
             short_dom.offset, L, ldt_dom.offset, E // S, L // S)
 
-        _trace("FRI", "FRI", dev)
-        revealed_indices = fri.prove(combination, proof_stream)
+        _trace("LDT", "LDT", dev)
+        revealed_indices = ldt.prove(combination, proof_stream)
         del combination
-        _trace("reveal", "FRI", dev)
+        _trace("reveal", "LDT", dev)
 
         # ZK guard (stark.rs:644-663)
         if alpha_pow_k[1] == 0 and alpha_pow_k[2] == 0:
@@ -462,7 +484,7 @@ class Verifier:
         if log2_padded_height >= 32:
             raise VerificationError("log2 padded height too large")
         padded_height = 1 << log2_padded_height
-        fri, ntr, trace_dom, rand_dom, quot_dom, ldt_dom = \
+        ldt, ntr, trace_dom, rand_dom, quot_dom, ldt_dom = \
             stark.derive_domains(padded_height)
         trace_domain_len = rand_dom.length // 2
         trace_gen = Domain(trace_domain_len).generator
@@ -545,11 +567,11 @@ class Verifier:
         for x, w in zip(ood_quot_r, w_qs[1:]):
             ood_quot_r_value = xfe.add(ood_quot_r_value, xfe.mul(x, w))
 
-        revealed_indices, revealed_values = fri.verify(proof_stream,
+        revealed_indices, revealed_values = ldt.verify(proof_stream,
                                                        stark.device)
-        t = fri.num_first_round_queries()
+        t = ldt.num_first_round_queries()
         if len(revealed_indices) != t or len(revealed_values) != t:
-            raise VerificationError("wrong number of revealed FRI values")
+            raise VerificationError("wrong number of revealed LDT values")
 
         def check_rows(root, rows, what):
             if len(rows) != t:

@@ -6,8 +6,10 @@ op_stack,ram,jump_stack,hash,cascade,lookup,u32}.rs.
 
 Main table: numpy uint64, shape (padded_height, 379), row-major host side.
 Aux table: numpy uint64, shape (padded_height, 91, 3) (XFE coefficients).
-Derived (degree-lowering) columns and the sequential-scan aux columns are
-computed on the host, vectorized over rows where the math allows.
+The prover fills the main table from the execution trace here. The
+derived (degree-lowering) columns and the sequential-scan aux columns
+computed here on the host, vectorized over rows where the math allows,
+are the oracle of the prover's device witness (tables/extend_device.py).
 """
 
 from __future__ import annotations
@@ -522,11 +524,6 @@ class X:
     bmul = staticmethod(lambda a, s: xfe.bfe_mul(a, s % P))
     ZERO = xfe.ZERO
     ONE = xfe.ONE
-
-
-def extend(main: np.ndarray, challenges) -> np.ndarray:
-    """Compute the 49 AIR aux columns (running arguments) on the host."""
-    return extend_host(main, challenges)
 
 
 def extend_host(main: np.ndarray, challenges) -> np.ndarray:
