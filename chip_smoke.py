@@ -37,19 +37,39 @@ non-zero and prints no result line:
    verify, tamper check;
 7. [spin_65536] the main path at padded height 2^16 (`spin(16)`, LDT
    domain 2^19), where `Stark` chooses STIR: prove, verify, tamper check;
-8. [witness] the device-resident witness (`main_witness_dev`,
+8. [spin_65536_jit] the same claim and seed with the JIT LDE forced
+   (`config.overwrite_lde_trace_caching_to(CacheDecision.JIT)`, 4 cosets
+   a table): the proof must equal spin_65536's word for word; verify,
+   tamper check;
+9. [spin_1048576] the main path at padded height 2^20 (`spin(20)`, LDT
+   domain 2^23), where the cache decision chooses JIT on an 80 GB card
+   (asserted from the prove's JIT spans): prove, verify, tamper check,
+   with the stage spans, the JIT spans within them and the peak device
+   memory;
+10. [witness] the device-resident witness (`main_witness_dev`,
    `aux_witness_dev`) on the card for `u32_mix` and `spin(12)`, word for
    word against the host oracle of tables/master.py, with the device and
    host times at spin(12).
 
-The launch counts of both kernels are set to 0 just before each proving
-path (phases 4-7) and read just after it; both must be above 0 on every
-path, and the spin_32768 and spin_65536 proves must launch K1 once per
-Merkle layer and K2 once per committed table and STIR tree, as the
-per-prove totals assume. The line before the
-last is a JSON object with each kernel's numbers (launches summed over
-the paths); the last line is the device record. Needs one card, no
-network; imports nothing of JAX.
+[spin_262144] and [spin_524288], run only when `--phases` names them,
+prove `spin(18)` and `spin(19)` (padded heights 2^18 and 2^19, LDT
+domains 2^21 and 2^22) on the cached path the heuristic chooses there
+(asserted), to record its peak device memory.
+
+The kernels phase also holds K1 at B = 2^22, K2 at 2^21 rows of 379
+and 273 (column-major, a JIT coset as the commit reads it), 2^23 rows of
+15 and 2^21 rows of 12 (the widest STIR tree's leaves) against their
+plain versions, and sums K1 and K2 per spin_1048576
+prove. `torch.cuda.empty_cache()` runs before each proving path, so one
+path's cached blocks move neither the next one's cache decision nor its
+peak. The launch counts of both kernels are set to 0 just before each
+proving path (phases 4-9) and read just after it; both must be above 0
+on every path, and every spin prove must launch K1 once per Merkle layer
+and K2 once per committed table (once per hashed coset of the main and
+aux tables on the JIT path) and STIR tree, as the per-prove totals
+assume. The line before the last is a JSON object with each kernel's
+numbers (launches summed over the paths); the last line is the device
+record. Needs one card, no network; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -82,8 +102,13 @@ JAX_FIB85_DIGEST = (6144958900407217928, 9077105590016610808,
 JAX_FIB85_STIR_DIGEST = (2557357267674768290, 7933928826770184855,
                          14971441563586756986, 17186831512452120839,
                          5748930431668251739)
-PATHS = ("fib_1024", "spin_32768", "fib_1024_stir", "spin_65536")
+PATHS = ("fib_1024", "spin_32768", "fib_1024_stir", "spin_65536",
+         "spin_65536_jit", "spin_1048576", "spin_262144", "spin_524288")
 PHASES = ("kernels",) + PATHS + ("witness",)
+OPTIONAL_PHASES = ("spin_262144", "spin_524288")
+DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPTIONAL_PHASES)
+SPIN_HEIGHTS = {"spin_32768": 15, "spin_65536": 16, "spin_65536_jit": 16,
+                "spin_1048576": 20, "spin_262144": 18, "spin_524288": 19}
 
 # Work of one Tip5 permutation in 32-bit integer multiplies (the H100's
 # integer pipe issues 64 of them per SM per clock; a 32 x 32 -> 64-bit
@@ -190,6 +215,25 @@ def k1_batches_per_prove(log2_height):
     return [k for m in trees for k in range(m)]
 
 
+def k2_launches_per_prove(log2_height, jit):
+    """(rows, width) of every K2 launch in a prove at padded height
+    2^log2_height: the cached path hashes the main (379 words a row), aux
+    (273) and quotient (15) tables over the LDT domain once each; the JIT
+    path hashes the main and aux tables a coset at a time (L / n cosets
+    hold LDT rows, n rows each); then each STIR tree's leaf rows of 12."""
+    from triton_vm_tpu_torch import Stark
+    from triton_vm_tpu_torch.ldt.stir import Stir
+
+    ldt, _, _, rand_dom, _, ldt_dom = Stark().derive_domains(
+        1 << log2_height)
+    L, n = ldt_dom.length, rand_dom.length
+    tables = ([(n, 379)] * (L // n) + [(n, 273)] * (L // n) if jit
+              else [(L, 379), (L, 273)]) + [(L, 15)]
+    leaves = ([(1 << k, 12) for k in ldt_tree_leaves(ldt)]
+              if isinstance(ldt, Stir) else [])
+    return tables + leaves
+
+
 class Bound:
     """Least time the card could take: bytes over HBM bandwidth vs int32
     multiplies over the integer pipe's peak."""
@@ -238,7 +282,8 @@ def phase_k1(rng, bound):
     from triton_vm_tpu_torch.ops import gf, tip5_cuda
 
     errs = []
-    for b in (1 << 18, (1 << 18) + 3):
+    # the widest Merkle layer of a 2^23-leaf tree (spin_1048576) too
+    for b in (1 << 18, (1 << 18) + 3, 1 << 22):
         s = gf.from_u64(random_field(rng, (16, b)), "cuda")
         errs.append(max_abs_err(tip5_cuda.permutation(s),
                                 tip5_cuda.permutation_plain(s)))
@@ -272,15 +317,16 @@ def phase_k1(rng, bound):
     bound_ms, bound_by = bound(2 * 16 * 8 * b, b)
     log(f"K1 ok (max_abs_err 0); B=2^17: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    # every Merkle layer's batch, 2^0 .. 2^18, for the per-prove totals
+    # every Merkle layer's batch, 2^0 .. 2^22, for the per-prove totals
     by_batch = {}
-    for k in range(19):
+    for k in range(23):
         layer = gf.from_u64(random_field(rng, (16, 1 << k)), "cuda")
         by_batch[k] = (time_ms(lambda: tip5_cuda.permutation(layer),
                                20 if k > 12 else 200),
                        bound(2 * 16 * 8 * (1 << k), 1 << k)[0])
     per_prove = {}
-    for label, log2_height in (("spin_32768", 15), ("spin_65536", 16)):
+    for label, log2_height in (("spin_32768", 15), ("spin_65536", 16),
+                               ("spin_1048576", 20)):
         batches = k1_batches_per_prove(log2_height)
         per_prove[label] = (sum(by_batch[k][0] for k in batches),
                             sum(by_batch[k][1] for k in batches))
@@ -372,10 +418,47 @@ def phase_k2(rng, bound):
 
     for k in ldt_tree_leaves(Stark().ldt(1 << 16)):
         per_prove["spin_65536"].append(timed_bound(leaves[:1 << k], 40))
+    # spin_1048576 (JIT): a coset of the main and aux tables, 2^21 rows of
+    # 379 and 273 read column-major in place, and the quotient table's
+    # 2^23 rows of 15, each held against the plain version; then the
+    # leaf rows of each STIR tree (2^21 down to 2^15)
+    by_shape = {}
+    for rb, n in ((1 << 21, 379), (1 << 21, 273), (1 << 23, 15)):
+        rows = gf.from_u64(random_field(rng, (n, rb)), "cuda").T
+        t0 = time.perf_counter()
+        errs.append(max_abs_err(tip5_cuda.sponge_absorb_rows(rows),
+                                tip5_cuda.sponge_absorb_rows_plain(rows)))
+        if errs[-1]:
+            raise AssertionError(f"K2 disagrees with its plain version at "
+                                 f"2^{rb.bit_length() - 1} x {n}: {errs[-1]}")
+        log(f"K2 2^{rb.bit_length() - 1} x {n} column-major equals its "
+            f"plain version ({time.perf_counter() - t0:.1f} s with it)")
+        by_shape[rb, n] = timed_bound(rows, 3 if n > 100 else 10)
+        del rows
+    del leaves
+    # the widest STIR tree's leaf rows at 2^20, row-major, held against the
+    # plain version; the narrower trees' launches read a prefix of it
+    leaves = gf.from_u64(random_field(rng, (1 << 21, 12)), "cuda")
+    errs.append(max_abs_err(tip5_cuda.sponge_absorb_rows(leaves),
+                            tip5_cuda.sponge_absorb_rows_plain(leaves)))
+    if errs[-1]:
+        raise AssertionError(f"K2 disagrees with its plain version at "
+                             f"2^21 x 12: {errs[-1]}")
+    for rb, n in k2_launches_per_prove(20, jit=True):
+        if (rb, n) not in by_shape:
+            assert n == 12
+            by_shape[rb, n] = timed_bound(leaves[:rb], 20)
+    per_prove["spin_1048576"] = [by_shape[key] for key in
+                                 k2_launches_per_prove(20, jit=True)]
+    for (rb, n), (t, bms, by) in by_shape.items():
+        if n != 12:
+            log(f"K2 2^{rb.bit_length() - 1} x {n}: kernel {t:.4f} ms, "
+                f"bound {bms:.4f} ms ({by})")
     totals = {label: (sum(t for t, _, _ in v), sum(bms for _, bms, _ in v))
               for label, v in per_prove.items()}
     err = max(errs)
-    log(f"K2 ok (max_abs_err 0, also at 2^19 x 379, 273 and 15); 2^18 x "
+    log(f"K2 ok (max_abs_err 0, also at 2^19 x 379, 273 and 15, 2^21 x "
+        f"379, 273 and 12, 2^23 x 15); 2^18 x "
         f"379: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_by}); 2^17 x 12: kernel "
         f"{by_width['12'][0]:.4f} ms, plain {plain12_ms:.2f} ms, bound "
@@ -391,6 +474,11 @@ def phase_k2(rng, bound):
                 bound_ms_by_width={n: bms for n, (_, bms, _)
                                    in by_width.items()},
                 plain_ms_12=plain12_ms,
+                ms_by_shape={f"2^{rb.bit_length() - 1}x{n}": t
+                             for (rb, n), (t, _, _) in by_shape.items()},
+                bound_ms_by_shape={f"2^{rb.bit_length() - 1}x{n}": bms
+                                   for (rb, n), (_, bms, _)
+                                   in by_shape.items()},
                 per_prove_ms={k: t for k, (t, _) in totals.items()},
                 per_prove_bound_ms={k: bms for k, (_, bms) in totals.items()})
 
@@ -406,8 +494,8 @@ def prove_and_verify(label, program, public_input, ldt_choice=None):
     the caller, `prove` with that Stark), then verify, then a tampered
     proof word must be rejected with a verification error (any other
     exception, such as a failed kernel launch, fails the run). Returns the
-    Stark, the proof and the kernel launches of the prove and of the
-    (accepting) verify."""
+    Stark, the proof, the kernel launches of the prove and of the
+    (accepting) verify, and the prove's spans within stages."""
     import torch
 
     import triton_vm_tpu_torch as tvm
@@ -417,6 +505,7 @@ def prove_and_verify(label, program, public_input, ldt_choice=None):
     from triton_vm_tpu_torch.ops import tip5_cuda
     from triton_vm_tpu_torch.utils import profiler
 
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = dict(tip5_cuda.launches)
     profiler.start(label)
@@ -465,7 +554,7 @@ def prove_and_verify(label, program, public_input, ldt_choice=None):
     if nested:
         log(f"{label} spans within stages (s): " + json.dumps(nested))
     log(f"{label} kernel launches: " + json.dumps(launches))
-    return stark, proof, launches
+    return stark, proof, launches, nested
 
 
 def check_digest(label, proof, want):
@@ -479,10 +568,11 @@ def check_digest(label, proof, want):
     log(f"{label} proof digest equals the JAX package's")
 
 
-def check_spin(label, log2_height, stark, proof, launches):
+def check_spin(label, log2_height, stark, proof, launches, jit):
     """A spin proof reached its padded height, with the LDT the default
     Stark chooses there, and launched K1 once per Merkle layer and K2 once
-    per committed table and STIR tree, as the per-prove totals assume."""
+    per committed table (on the JIT path once per hashed coset of the main
+    and aux tables) and STIR tree, as the per-prove totals assume."""
     from triton_vm_tpu_torch.ldt.stir import Stir
 
     if proof.padded_height() != 1 << log2_height:
@@ -498,33 +588,58 @@ def check_spin(label, log2_height, stark, proof, launches):
                              "per Merkle layer as the per-prove K1 total "
                              "assumes")
     k2 = launches["prove"]["tip5_sponge_rows"]
-    want_k2 = 3 + (len(ldt_tree_leaves(ldt)) if isinstance(ldt, Stir) else 0)
+    want_k2 = len(k2_launches_per_prove(log2_height, jit))
     if k2 != want_k2:
         raise AssertionError(f"{label} launched K2 {k2} times, not "
                              f"{want_k2}")
 
 
-def drive_path(name):
+def drive_path(name, proofs):
     """One proving path of the main path, with every launch count set to
     0 just before it and read just after; every kernel must have been
-    launched. Returns the counts."""
+    launched. `proofs` holds the spin proofs of this run by path name
+    (spin_65536_jit is held against spin_65536's). Returns the counts."""
+    from triton_vm_tpu_torch import config
+    from triton_vm_tpu_torch.crypto import tip5
     from triton_vm_tpu_torch.models import example_programs as ex
     from triton_vm_tpu_torch.ops import tip5_cuda
 
     tip5_cuda.reset_launch_counts()
     if name == "fib_1024":
-        _, proof, _ = prove_and_verify(name, ex.fibonacci(), [85])
+        _, proof, _, _ = prove_and_verify(name, ex.fibonacci(), [85])
         check_digest(name, proof, JAX_FIB85_DIGEST)
     elif name == "fib_1024_stir":
-        _, proof, _ = prove_and_verify(name, ex.fibonacci(), [85],
-                                       ldt_choice="stir")
+        _, proof, _, _ = prove_and_verify(name, ex.fibonacci(), [85],
+                                          ldt_choice="stir")
         check_digest(name, proof, JAX_FIB85_STIR_DIGEST)
     else:
-        log2_height = {"spin_32768": 15, "spin_65536": 16}[name]
+        log2_height = SPIN_HEIGHTS[name]
         program, iterations = ex.spin(log2_height)
-        stark, proof, launches = prove_and_verify(name, program,
-                                                  [iterations])
-        check_spin(name, log2_height, stark, proof, launches)
+        forced = name == "spin_65536_jit"
+        if forced:
+            config.overwrite_lde_trace_caching_to(config.CacheDecision.JIT)
+        try:
+            stark, proof, launches, nested = prove_and_verify(
+                name, program, [iterations])
+        finally:
+            config.overwrite_lde_trace_caching_to(None)
+        # the JIT path opens its coset spans within the prover's stages
+        jit = any(span.endswith("/JIT coset NTT") for span in nested)
+        log(f"{name}: cache decision {'JIT' if jit else 'CACHE'}")
+        if jit != (forced or name == "spin_1048576"):
+            raise AssertionError(f"{name}: the prover took the "
+                                 f"{'JIT' if jit else 'cached'} path")
+        check_spin(name, log2_height, stark, proof, launches, jit)
+        if forced:
+            w, want = proof.words, proofs["spin_65536"].words
+            digests = [tuple(tip5.hash_varlen([len(x) + 1, len(x)] + x))
+                       for x in (w, want)]
+            if w != want or digests[0] != digests[1]:
+                raise AssertionError(f"{name}: the JIT proof differs from "
+                                     f"spin_65536's ({digests})")
+            log(f"{name}: proof equals spin_65536's word for word "
+                f"(digest {digests[0]})")
+        proofs[name] = proof
     counts = dict(tip5_cuda.launches)
     log(f"{name} kernel launches, prove and verify: {json.dumps(counts)}")
     for kernel, n in counts.items():
@@ -596,12 +711,16 @@ def phase_witness():
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of: " + ", ".join(PHASES))
+    ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
+                    help="comma-separated subset of: " + ", ".join(PHASES)
+                    + " (by default all but "
+                    + " and ".join(OPTIONAL_PHASES) + ")")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not phases <= set(PHASES):
         ap.error(f"unknown phases: {sorted(phases - set(PHASES))}")
+    if "spin_65536_jit" in phases and "spin_65536" not in phases:
+        ap.error("spin_65536_jit is held against spin_65536: name both")
 
     import torch
 
@@ -624,10 +743,10 @@ def main(argv=None):
     if "kernels" in phases:
         bound = Bound()
         kernels = [phase_k1(rng, bound), phase_k2(rng, bound)]
-    launches = {}
+    launches, proofs = {}, {}
     for path in PATHS:
         if path in phases:
-            for kernel, n in drive_path(path).items():
+            for kernel, n in drive_path(path, proofs).items():
                 launches[kernel] = launches.get(kernel, 0) + n
     if launches:
         log(f"kernel launches on the main path, all paths: "

@@ -1,8 +1,9 @@
 """Card-only checks of the port: each CUDA kernel against its plain torch
-version on the card, the device witness and a STIR transcript on the card
-against the same computation on the CPU, and the fib(10) proof on the card
-against the digest pinned for the JAX package. Every test is marked `cuda` and skips without
-a card. This file imports nothing of JAX, so on a machine without it run
+version on the card, the device witness, the JIT LDE and a STIR
+transcript on the card against the same computation on the CPU, and the
+fib(10) proof on the card against the digest pinned for the JAX package.
+Every test is marked `cuda` and skips without a card. This file imports
+nothing of JAX, so on a machine without it run
 `python -m pytest --noconftest tests/test_torch_cuda.py -q`."""
 
 import numpy as np
@@ -104,6 +105,43 @@ def test_witness_on_the_card_equals_cpu(cuda):
         main = ed.main_witness_dev(main_air, dev)
         out[str(dev)] = (gf.to_u64(main), gf.to_u64(
             ed.aux_witness_dev(main, challenges, randomizer)))
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert np.array_equal(got, want)
+
+
+def test_jit_lde_on_the_card_equals_cpu(cuda):
+    """The JIT commit's digests (K2 on each coset, read in place) and the
+    JIT quotient codeword, at the domains of padded height 2^8 with full
+    tables of random words, on the card and on the CPU."""
+    import triton_vm_tpu_torch as tvm
+    from triton_vm_tpu_torch.air.challenges import SAMPLE_COUNT, Challenges
+    from triton_vm_tpu_torch.air.master import master_air
+    from triton_vm_tpu_torch.stark import jit_lde, prover
+
+    _, ntr, trace_dom, rand_dom, quot_dom, ldt_dom = tvm.Stark(
+        device="cpu").derive_domains(256)
+    h, n = trace_dom.length, rand_dom.length
+    eval_dom = ldt_dom if ldt_dom.length >= quot_dom.length else quot_dom
+    claim = tvm.Claim([1, 2, 3, 4, 5], [10], [55])
+    challenges = Challenges([tuple(int(c) for c in row)
+                             for row in _field(4, (SAMPLE_COUNT, 3))], claim)
+    weights = prover._powers_xfe(
+        (3, 1, 4), sum(len(cs) for cs in master_air().constraints.values()))
+    out = {}
+    for dev in ("cpu", cuda):
+        main = jit_lde.committed_coefficients(
+            gf.from_u64(_field(1, (prover.NUM_MAIN, h)), dev),
+            gf.from_u64(_field(2, (prover.NUM_MAIN, ntr)), dev), trace_dom,
+            n)
+        aux = jit_lde.committed_coefficients(
+            gf.from_u64(_field(3, (prover.NUM_AUX, 3, h)), dev),
+            gf.from_u64(_field(5, (prover.NUM_AUX, 3, ntr)), dev),
+            trace_dom, n)
+        out[str(dev)] = [gf.to_u64(x) for x in (
+            jit_lde.committed_digests_bfe(main, eval_dom, ldt_dom.length),
+            jit_lde.committed_digests_xfe(aux, eval_dom, ldt_dom.length),
+            jit_lde.quotient_codeword_jit(main, aux, trace_dom, quot_dom,
+                                          challenges, weights))]
     for got, want in zip(out["cuda"], out["cpu"]):
         assert np.array_equal(got, want)
 

@@ -58,15 +58,15 @@ def test_commit_lde_matches_jax_commit_stage():
     zv = jgf.from_u64(jprover._trace_zerofier_values(trace_dom, eval_dom))
     want, _ = jprover._commit_bfe_fn(h, E, E, 7, ntr, nc)(
         jgf.from_u64(cols), jgf.from_u64(rand), zv)
-    got = prover._commit_bfe(gf.from_u64(cols), gf.from_u64(rand),
-                             trace_dom, eval_dom)
+    _, got = prover._commit_bfe(gf.from_u64(cols), gf.from_u64(rand),
+                                trace_dom, eval_dom)
     assert np.array_equal(gf.to_u64(got), jgf.to_u64(want))
 
     xcols, xrand = _cols(3, (nc, 3, h)), _cols(4, (nc, 3, ntr))
     want3, _ = jprover._commit_xfe_fn(h, E, E, 7, ntr, nc)(
         tuple(jgf.from_u64(xcols[:, c]) for c in range(3)),
         tuple(jgf.from_u64(xrand[:, c]) for c in range(3)), zv)
-    got3 = prover._commit_bfe(gf.from_u64(xcols), gf.from_u64(xrand),
-                              trace_dom, eval_dom)        # (nc, 3, E)
+    _, got3 = prover._commit_bfe(gf.from_u64(xcols), gf.from_u64(xrand),
+                                 trace_dom, eval_dom)     # (nc, 3, E)
     for c in range(3):
         assert np.array_equal(gf.to_u64(got3[:, c]), jgf.to_u64(want3[c]))

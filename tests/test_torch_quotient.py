@@ -83,15 +83,16 @@ def fib_trace():
     aux[:, prover.NUM_AUX - 1, :] = rng.integers(0, P, (h, 3),
                                                  dtype=np.uint64)
     quot_dom = Domain(2 * h, ldt_dom.offset)
-    main_q = prover._commit_bfe(
+    _, main_q = prover._commit_bfe(
         gf.from_u64(main.T),
         gf.from_u64(rng.integers(0, P, (prover.NUM_MAIN, ntr),
                                  dtype=np.uint64)), trace_dom, quot_dom)
-    aux_q = prover._commit_bfe(
+    _, aux_q = prover._commit_bfe(
         gf.from_u64(aux.transpose(1, 2, 0)),
         gf.from_u64(rng.integers(0, P, (prover.NUM_AUX, 3, ntr),
                                  dtype=np.uint64)),
-        trace_dom, quot_dom).permute(1, 0, 2)              # (3, NA, Q)
+        trace_dom, quot_dom)
+    aux_q = aux_q.permute(1, 0, 2)                         # (3, NA, Q)
     n = sum(len(cs) for cs in master_air().constraints.values())
     weights = prover._powers_xfe((3, 1, 4), n)
     return main_q, aux_q, trace_dom, quot_dom, challenges, weights

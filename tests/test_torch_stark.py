@@ -2,7 +2,8 @@
 -> `Stark.verify` of triton_vm_tpu_torch. The fib(10) proof hashes to the
 digest pinned for the JAX package (tests/test_stark_e2e.py), the verifier
 rejects tampered claims and proofs, entry points refuse a missing card
-rather than move to the CPU, and the package imports nothing of JAX.
+rather than move to the CPU, a forced JIT LDE proves and verifies, and
+the package imports nothing of JAX.
 Word-for-word equality with the JAX package's proof and cross-package
 verification are in test_torch_stark_interop.py."""
 
@@ -76,7 +77,7 @@ def test_entry_points_default_to_cuda_and_refuse_a_missing_card():
         tvm.Stark()
 
 
-def test_unported_paths_raise_instead_of_falling_back():
+def test_stir_and_jit_paths_prove_instead_of_raising():
     from triton_vm_tpu_torch.ldt.stir import Stir
 
     assert isinstance(tvm.Stark(device="cpu").ldt(1 << 16), Stir)
@@ -84,10 +85,11 @@ def test_unported_paths_raise_instead_of_falling_back():
                       Stir)
     config.overwrite_lde_trace_caching_to(config.CacheDecision.JIT)
     try:
-        with pytest.raises(NotImplementedError, match="JIT"):
-            tvm.prove_program(ex.fibonacci(), [3], seed=SEED, device="cpu")
+        stark, claim, proof = tvm.prove_program(ex.fibonacci(), [3],
+                                                seed=SEED, device="cpu")
     finally:
         config.overwrite_lde_trace_caching_to(None)
+    assert stark.verify(claim, proof)
 
 
 def test_package_imports_no_jax():

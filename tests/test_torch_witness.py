@@ -101,6 +101,21 @@ def test_aux_witness_equals_jax_host(case):
     assert not bad, f"{case['name']}: aux columns differ: {bad}"
 
 
+def test_witness_in_row_chunks_equals_jax_host(case, monkeypatch):
+    """The derived-column tapes in chunks of 64 rows: each chunk's next
+    rows (the row after its last, the first row after the last chunk)
+    come from the next chunk."""
+    monkeypatch.setattr(ed, "_FILL_CHUNK_ROWS", 64)
+    assert case["main"].shape[0] > 64
+    main_dev = ed.main_witness_dev(case["main_air"], "cpu")
+    bad = _bad_columns(gf.to_u64(main_dev).T, case["main"])
+    assert not bad, f"{case['name']}: main columns differ: {bad}"
+    aux_dev = ed.aux_witness_dev(main_dev, case["challenges"],
+                                 case["randomizer"])
+    bad = _bad_columns(gf.to_u64(aux_dev).transpose(2, 0, 1), case["aux"])
+    assert not bad, f"{case['name']}: aux columns differ: {bad}"
+
+
 def test_extend_all_device_equals_jax_extend_host(case):
     got = ed.extend_all_device(case["main"], case["challenges"], "cpu")
     bad = _bad_columns(got, case["aux_scans"])

@@ -3,8 +3,9 @@
 Mirrors the reference's config system (triton-vm/src/config.rs:24-94):
 whether the prover materializes the committed codewords (CACHE) or
 recomputes them coset by coset (JIT). The budget is the memory of the
-device the prover runs on: `torch.cuda.mem_get_info` on a card, free host
-memory on the CPU.
+device the prover runs on: on a card the memory `torch.cuda.mem_get_info`
+reports free plus what PyTorch's caching allocator holds unused, on the
+CPU the free host memory.
 
 Decision inputs, in precedence order (config.rs:60-94):
   1. programmatic override via `overwrite_lde_trace_caching_to(...)`.
@@ -43,11 +44,15 @@ def overwrite_lde_trace_caching_to(decision: CacheDecision | None) -> None:
 
 
 def _device_memory_bytes(device) -> int:
-    """Free memory of `device` in bytes."""
+    """Free memory of `device` in bytes. On a card that counts the blocks
+    PyTorch's caching allocator holds but does not use (the counterpart
+    of the JAX package's bytes_limit - bytes_in_use): `mem_get_info` sees
+    them as taken, so after an earlier proof it reads tens of GB low."""
     device = torch.device(device)
     if device.type == "cuda":
         free, _total = torch.cuda.mem_get_info(device)
-        return free
+        return free + (torch.cuda.memory_reserved(device)
+                       - torch.cuda.memory_allocated(device))
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_AVPHYS_PAGES")
 
 

@@ -18,13 +18,12 @@ domain); leaf rows are hashed by the K2 row sponge and the trees built by
 K1 (ops/tip5_kernel.py). The per-query coset work of the verifier (size
 k = the folding factor) and the interpolation through the ~hundred query
 points are scalar host math. The prover's work is timed in spans within
-the prover's `LDT` stage (`_span`).
+the prover's `LDT` stage (`profiler.device_span`).
 """
 
 from __future__ import annotations
 
 import math
-from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -190,7 +189,7 @@ class Stir:
         k = self.folding_factor
         dev = codeword.device
 
-        with _span("STIR commit", dev):
+        with profiler.device_span("STIR commit", "LDT", dev):
             commitment = _StirMerkleTreeDev(codeword, k)
             coeffs = ntt.intt(codeword, domain.offset)
         proof_stream.enqueue(ProofItem("MerkleRoot", commitment.root()))
@@ -199,7 +198,7 @@ class Stir:
         for in_domain, out_of_domain in self.round_queries:
             folding_randomness = proof_stream.sample_scalars(1)[0]
             next_domain = self.next_round_domain(domain)
-            with _span("STIR commit", dev):
+            with profiler.device_span("STIR commit", "LDT", dev):
                 folded = _fold_device(coeffs, k, folding_randomness)
                 folded_evals = ntt.ntt(_pad_to(folded, next_domain.length),
                                        next_domain.offset)
@@ -210,7 +209,7 @@ class Stir:
             ood_queries = proof_stream.sample_scalars(out_of_domain)
             if any(_point_on_domain(pt, next_domain) for pt in ood_queries):
                 raise LdtError("OOD query on evaluation domain")
-            with _span("STIR point evaluation", dev):
+            with profiler.device_span("STIR point evaluation", "LDT", dev):
                 ood_values = _eval_folded_at(folded, ood_queries)
             proof_stream.enqueue(ProofItem("StirOutOfDomainValues",
                                            list(ood_values)))
@@ -220,7 +219,7 @@ class Stir:
             folded_domain = domain.pow(k)
             folded_queried_indices = _unique(
                 i % folded_domain.length for i in queried_indices)
-            with _span("STIR inclusion proofs", dev):
+            with profiler.device_span("STIR inclusion proofs", "LDT", dev):
                 response = commitment.inclusion_proof(folded_queried_indices)
             proof_stream.enqueue(ProofItem("StirResponse", response))
 
@@ -229,21 +228,23 @@ class Stir:
                         for i in folded_queried_indices]
             if any(_point_on_domain(pt, next_domain) for pt in pt_lifts):
                 raise LdtError("quotient point on evaluation domain")
-            with _span("STIR point evaluation", dev):
+            with profiler.device_span("STIR point evaluation", "LDT", dev):
                 points_to_quotient_out = (_eval_folded_at(folded, pt_lifts)
                                           + list(ood_values))
             domain_values_out = pt_lifts + list(ood_queries)
-            with _span("STIR host interpolation", dev):  # O(points^2)
+            # O(points^2)
+            with profiler.device_span("STIR host interpolation", "LDT",
+                                      dev):
                 answer_poly = poly.interpolate(domain_values_out,
                                                points_to_quotient_out, xfe)
 
             dc_randomness = proof_stream.sample_scalars(1)[0]
             dc_coeffs = _powers(dc_randomness,
                                 len(points_to_quotient_out) + 1)
-            with _span("STIR zerofier", dev):
+            with profiler.device_span("STIR zerofier", "LDT", dev):
                 z_evals = _zerofier_on_domain_dev(domain_values_out,
                                                   next_domain, dev)
-            with _span("STIR quotient", dev):
+            with profiler.device_span("STIR quotient", "LDT", dev):
                 ans_evals, dc_evals = _eval_poly_on_domain_dev(
                     [answer_poly, dc_coeffs], next_domain, dev)
                 next_vals = _quotient_next_vals(folded_evals, ans_evals,
@@ -256,7 +257,7 @@ class Stir:
 
         # final round: no quotienting (stir.rs:976-992)
         folding_randomness = proof_stream.sample_scalars(1)[0]
-        with _span("STIR commit", dev):
+        with profiler.device_span("STIR commit", "LDT", dev):
             final_poly = gfx.to_tuples(_fold_device(coeffs, k,
                                                     folding_randomness))
         proof_stream.enqueue(ProofItem(
@@ -267,7 +268,7 @@ class Stir:
             domain.length, self.final_num_in_domain_queries)
         folded_queried_indices = _unique(
             i % folded_domain.length for i in queried_indices)
-        with _span("STIR inclusion proofs", dev):
+        with profiler.device_span("STIR inclusion proofs", "LDT", dev):
             response = commitment.inclusion_proof(folded_queried_indices)
         proof_stream.enqueue(ProofItem("StirResponse", response))
 
@@ -474,16 +475,6 @@ def _subsequent_in_domain_answers(quotienting, queries,
 _EVAL_BLOCK_ELEMS = 1 << 22
 # Largest (points x domain) block of linear factors the zerofier multiplies.
 _ZEROFIER_BLOCK_ELEMS = 1 << 23
-
-
-@contextmanager
-def _span(name, device):
-    """A span within the prover's `LDT` stage; on CUDA the stream is
-    synchronised at its end, so the span holds its own device work."""
-    with profiler.span(name, "LDT"):
-        yield
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
 
 
 def _pad_to(v, n):

@@ -27,6 +27,22 @@ P_I64 = P - (1 << 64)      # p as a (negative) int64 bit pattern
 _SIGN = -(1 << 63)
 _P_FLIPPED = P ^ (1 << 63)  # p in the sign-flipped order of _ult
 
+# Bytes that the temporaries of one block of a whole-table operation (the
+# transforms of ops/ntt.py, the column reductions of ops/kernels.py) may
+# take: a few GB of an 80 GB card, whatever the table's size.
+WORK_BYTES = 2 << 30
+# int64 temporaries that one word of such a block holds at the peak of
+# `mul` (the limbs, partial products and carries of _mul128 and
+# _reduce128, and the operands): one NTT of a (379, 2^15) table raised the
+# CPU's resident set by 13 times the table's size.
+TEMPS_PER_WORD = 16
+
+
+def block_rows(row_words: int) -> int:
+    """Rows of `row_words` field words each that one block may hold, so
+    that its temporaries stay under WORK_BYTES (at least one row)."""
+    return max(1, WORK_BYTES // (TEMPS_PER_WORD * 8 * row_words))
+
 
 def to_i64(x: int) -> int:
     """Python int in [0, 2^64) -> the int64 with the same bit pattern."""

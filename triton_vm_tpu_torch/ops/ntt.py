@@ -6,6 +6,10 @@ textbook iterative radix-2 network: a bit-reversal gather, then log2(n)
 butterfly stages over a (..., blocks, 2, half) view. Any correct
 transform gives the same field elements as `triton_vm_tpu.ops.ntt`
 (tests/test_torch_ntt.py).
+
+The leading axes are transformed a block of rows at a time
+(`gf.block_rows`), each block written into one preallocated output, so a
+transform's temporaries stay a few GB however many columns it has.
 """
 
 from __future__ import annotations
@@ -76,28 +80,57 @@ def _transform(x, root: int):
     return x
 
 
-def ntt(coeffs, offset: int = 1):
-    """Natural-order coefficients -> values on offset * <omega_n>."""
+def _blockwise(fn, x, length: int):
+    """fn over blocks of the rows of x (..., n), each block's result
+    (rows, length) written into one new tensor (..., length). The leading
+    axes of x must merge into one view (no copy is made)."""
+    out = torch.empty(x.shape[:-1] + (length,), dtype=x.dtype,
+                      device=x.device)
+    rows, dst = x.view(-1, x.shape[-1]), out.view(-1, length)
+    step = gf.block_rows(max(x.shape[-1], length))
+    for s in range(0, rows.shape[0], step):
+        dst[s:s + step] = fn(rows[s:s + step])
+    return out
+
+
+def _ntt_rows(coeffs, offset: int, length: int):
     n = coeffs.shape[-1]
     if offset % P != 1:
         coeffs = gf.mul(coeffs, _scales(n, offset, 1, coeffs.device))
-    return _transform(coeffs, bfe.primitive_root_of_unity(n))
+    if length != n:
+        padded = torch.zeros(coeffs.shape[:-1] + (length,),
+                             dtype=coeffs.dtype, device=coeffs.device)
+        padded[..., :n] = coeffs
+        coeffs = padded
+    return _transform(coeffs, bfe.primitive_root_of_unity(length))
 
 
-def intt(values, offset: int = 1):
-    """Values on offset * <omega_n> -> natural-order coefficients."""
+def _intt_rows(values, offset: int):
     n = values.shape[-1]
     c = _transform(values, bfe.inv(bfe.primitive_root_of_unity(n)))
     return gf.mul(c, _scales(n, bfe.inv(offset), bfe.inv(n % P),
                              values.device))
 
 
+def ntt(coeffs, offset: int = 1, length: int | None = None):
+    """Natural-order coefficients (..., n) -> values on offset *
+    <omega_length> of the polynomial they give (length >= n, by default
+    n): the coefficients zero-padded to `length`, then transformed."""
+    length = length or coeffs.shape[-1]
+    assert length >= coeffs.shape[-1]
+    return _blockwise(lambda b: _ntt_rows(b, offset, length), coeffs, length)
+
+
+def intt(values, offset: int = 1):
+    """Values on offset * <omega_n> -> natural-order coefficients."""
+    return _blockwise(lambda b: _intt_rows(b, offset), values,
+                      values.shape[-1])
+
+
 def lde(values, expansion: int, in_offset: int = 1, out_offset: int = 7):
     """Values on in_offset * <omega_n> -> values of the same polynomial on
     out_offset * <omega_{expansion * n}> (arithmetic_domain.rs:203-212)."""
-    n = values.shape[-1]
-    c = intt(values, in_offset)
-    padded = torch.zeros(c.shape[:-1] + (n * expansion,), dtype=c.dtype,
-                         device=c.device)
-    padded[..., :n] = c
-    return ntt(padded, out_offset)
+    length = values.shape[-1] * expansion
+    return _blockwise(
+        lambda b: _ntt_rows(_intt_rows(b, in_offset), out_offset, length),
+        values, length)

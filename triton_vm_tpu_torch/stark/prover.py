@@ -6,13 +6,14 @@ length, max degree, FRI setup), the DEEP-ALI proving pipeline
 of `triton_vm_tpu.stark.prover`, whose proof words it reproduces.
 
 Compute placement: the derived main columns, the aux extension
-(tables/extend_device.py), LDE, row hashing and Merkle trees, the quotient
-tapes (air/compile.py), out-of-domain rows, the DEEP combination and the
-low-degree test (FRI or STIR) run on the prover's device (a CUDA card
-unless the caller asks for the CPU); the main table's fill from the
-execution trace, Fiat-Shamir and randomness are on the host. The host <->
-device boundary is numpy uint64 <-> int64 tensors with the same bit
-patterns (ops/gf.py).
+(tables/extend_device.py), LDE (cached, or coset by coset where the
+committed codewords would not fit: stark/jit_lde.py), row hashing and
+Merkle trees, the quotient tapes (air/compile.py), out-of-domain rows, the
+DEEP combination and the low-degree test (FRI or STIR) run on the
+prover's device (a CUDA card unless the caller asks for the CPU); the
+main table's fill from the execution trace, Fiat-Shamir and randomness
+are on the host. The host <-> device boundary is numpy uint64 <-> int64
+tensors with the same bit patterns (ops/gf.py).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ..ops import gf, gfx, kernels, ntt, tip5_kernel
 from ..tables import extend_device
 from ..tables import master as mt
 from ..utils import profiler as _profiler
+from . import jit_lde
 from .arithmetic_domain import Domain
 from .proof_item import ProofItem
 from .proof_stream import Claim, Proof, ProofStream
@@ -51,9 +53,10 @@ _CURRENT_STAGE = None
 def _trace(msg, category=None, device=None):
     """Stage marker: closes the previous prover stage span (if any) and
     opens a new one in the global profiler; also prints under
-    TVM_TRACE=1. Call with msg=None to close the final stage. On a CUDA
-    device the stream is synchronised first, so a span holds the device
-    work its stage enqueued."""
+    TVM_TRACE=1, on a card with the peak device memory so far. Call with
+    msg=None to close the final stage. On a CUDA device the stream is
+    synchronised first, so a span holds the device work its stage
+    enqueued."""
     global _CURRENT_STAGE
     if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -63,7 +66,12 @@ def _trace(msg, category=None, device=None):
     if msg is not None:
         _profiler.enter(msg, category)
     if _TRACE and msg is not None:
-        print(f"[{time.time() - _T0:8.1f}s] {msg}", flush=True)
+        peak = ""
+        if device is not None and device.type == "cuda":
+            peak = (f" (peak device memory so far "
+                    f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f}"
+                    " GiB)")
+        print(f"[{time.time() - _T0:8.1f}s] {msg}{peak}", flush=True)
 
 
 NUM_QUOTIENT_SEGMENTS = 4
@@ -288,16 +296,16 @@ class Prover:
             "Log2PaddedHeight", padded_height.bit_length() - 1))
 
         h = trace_dom.length
+        n = rand_dom.length
         L = ldt_dom.length
         Q = quot_dom.length
         E = max(L, Q)  # evaluation domain length
         eval_dom = ldt_dom if L >= Q else quot_dom
-        if config.cache_lde_trace(L, dev) is config.CacheDecision.JIT:
-            raise NotImplementedError(
-                f"the committed codewords of an LDT domain of {L} rows do "
-                f"not fit the memory of {dev} (cache-or-JIT decision: JIT); "
-                "the JIT LDE path is not ported yet: ROADMAP.md, port queue "
-                "'JIT-LDE'")
+        # Cache-or-JIT (config.rs:24-94): the cached path keeps the
+        # committed codewords on the evaluation domain; the JIT path keeps
+        # only their polynomials' coefficients and evaluates them coset by
+        # coset (stark/jit_lde.py).
+        use_jit = config.cache_lde_trace(L, dev) is config.CacheDecision.JIT
 
         # ------------------------------------------------------ main table
         _trace("fill main", "witness", dev)
@@ -306,11 +314,19 @@ class Prover:
         main_rand = _drbg_bfes_rows(self.seed, range(NUM_MAIN), ntr)
 
         _trace("main LDE", "LDE", dev)
-        main_lde = _commit_bfe(main, gf.from_u64(main_rand, dev), trace_dom,
-                               eval_dom)                      # (NM, E)
-
-        _trace("main merkle", "hash", dev)
-        main_tree = _commit_tree(main_lde[:, ::E // L].T, L)
+        main_rand = gf.from_u64(main_rand, dev)
+        if use_jit:
+            main_coeffs = jit_lde.committed_coefficients(
+                main, main_rand, trace_dom, n)                # (NM, n)
+            main_digests = jit_lde.committed_digests(main_coeffs, eval_dom,
+                                                     L)
+            _trace("main merkle", "hash", dev)
+            main_tree = _merkle_tree(main_digests)
+        else:
+            main_coeffs, main_lde = _commit_bfe(
+                main, main_rand, trace_dom, eval_dom)         # (NM, E)
+            _trace("main merkle", "hash", dev)
+            main_tree = _commit_tree(main_lde[:, ::E // L].T, L)
         proof_stream.enqueue(ProofItem("MerkleRoot", main_tree.root()))
         challenges = Challenges(proof_stream.sample_scalars(SAMPLE_COUNT),
                                 claim)
@@ -325,17 +341,25 @@ class Prover:
             self.seed, range(NUM_MAIN, NUM_MAIN + NUM_AUX), ntr)
 
         _trace("aux LDE", "LDE", dev)
-        # (NA, 3, E) storage: row k of the flattened (3 NA, E) view is
+        # (NA, 3, .) storage: row k of the flattened (3 NA, .) view is
         # component k % 3 of column k // 3, the committed row order
-        aux_store = _commit_bfe(aux,
-                                gf.from_u64(aux_rand.transpose(0, 2, 1), dev),
-                                trace_dom, eval_dom)          # (NA, 3, E)
-        del aux
-        aux_lde = aux_store.permute(1, 0, 2)                   # XFE (3, NA, E)
-
-        _trace("aux merkle", "hash", dev)
-        aux_tree = _commit_tree(
-            aux_store.view(3 * NUM_AUX, E)[:, ::E // L].T, L)
+        aux_rand = gf.from_u64(aux_rand.transpose(0, 2, 1), dev)
+        if use_jit:
+            aux_coeffs = jit_lde.committed_coefficients(
+                aux, aux_rand, trace_dom, n)                  # (NA, 3, n)
+            del aux
+            aux_digests = jit_lde.committed_digests(aux_coeffs, eval_dom,
+                                                    L)
+            _trace("aux merkle", "hash", dev)
+            aux_tree = _merkle_tree(aux_digests)
+        else:
+            aux_coeffs, aux_store = _commit_bfe(
+                aux, aux_rand, trace_dom, eval_dom)           # (NA, 3, E)
+            del aux
+            aux_lde = aux_store.permute(1, 0, 2)               # XFE (3, NA, E)
+            _trace("aux merkle", "hash", dev)
+            aux_tree = _commit_tree(
+                aux_store.view(3 * NUM_AUX, E)[:, ::E // L].T, L)
         proof_stream.enqueue(ProofItem("MerkleRoot", aux_tree.root()))
 
         initial_quot_weight = proof_stream.sample_scalars(1)[0]
@@ -345,10 +369,15 @@ class Prover:
 
         # --------------------------------------------- quotient segments
         _trace("quotients", "quotient", dev)
-        stride = E // Q
-        quotient = _all_quotients_combined_device(
-            main_lde[:, ::stride], aux_lde[:, :, ::stride], trace_dom,
-            quot_dom, challenges, quot_weights)               # XFE (3, Q)
+        if use_jit:
+            quotient = jit_lde.quotient_codeword_jit(
+                main_coeffs, aux_coeffs, trace_dom, quot_dom, challenges,
+                quot_weights)                                 # XFE (3, Q)
+        else:
+            stride = E // Q
+            quotient = _all_quotients_combined_device(
+                main_lde[:, ::stride], aux_lde[:, :, ::stride], trace_dom,
+                quot_dom, challenges, quot_weights)           # XFE (3, Q)
 
         _trace("segmentify", "quotient", dev)
         n_qr = Stark.num_quotient_table_randomizers(ntr)
@@ -375,10 +404,12 @@ class Prover:
         def point(x):
             return gfx.full((), tuple(x), dev)
 
+        # both paths keep the committed polynomials' coefficients: the OOD
+        # rows and the weighted main+aux codeword are computed from them
+        aux_polys = aux_coeffs.permute(1, 0, 2)         # XFE (3, NA, n)
         m1, a1, m2, a2, s1, s2 = kernels.ood_stage_fn(
-            main_lde, aux_lde, segs, point(alpha), point(omega_alpha),
+            main_coeffs, aux_polys, segs, point(alpha), point(omega_alpha),
             point(alpha_pow_k), point(zeta_alpha_pow_k),
-            gf.powers(eval_dom.generator, E, eval_dom.offset, dev),
             gf.powers(ldt_dom.generator, L, ldt_dom.offset, dev))
         ood_main_curr, ood_aux_curr = gfx.to_tuples(m1), gfx.to_tuples(a1)
         ood_main_next, ood_aux_next = gfx.to_tuples(m2), gfx.to_tuples(a2)
@@ -415,13 +446,18 @@ class Prover:
         def rows(xs):
             return gfx.from_u64(np.array(xs, np.uint64), dev)
 
+        # the weighted main+aux codeword on the short domain: the weighted
+        # sum of the coefficients, evaluated there
+        cw_ma = ntt.ntt(kernels.weighted_column_sum(
+            main_coeffs, aux_polys, rows(weights["main"]),
+            rows(weights["aux"])), short_dom.offset, S)
         combination = kernels.deep_combination_fn(
-            main_lde, aux_lde, segs, rows(weights["main"]),
-            rows(weights["aux"]), rows(w_qs), rows(weights["deep"]),
+            cw_ma, segs, rows(w_qs), rows(weights["deep"]),
             rows([alpha, omega_alpha, alpha_pow_k, zeta_alpha_pow_k]),
             rows([v_curr, v_next, v_p, v_r]),
             gf.powers(short_dom.generator, S, short_dom.offset, dev),
-            short_dom.offset, L, ldt_dom.offset, E // S, L // S)
+            short_dom.offset, L, ldt_dom.offset, L // S)
+        del cw_ma
 
         _trace("LDT", "LDT", dev)
         revealed_indices = ldt.prove(combination, proof_stream)
@@ -437,8 +473,17 @@ class Prover:
                 raise ProvingError("zero-knowledge violation")
 
         # ------------------------------------------------ open trace rows
-        msel, a3, qsel = _reveal_gather_fn(main_lde, aux_lde, segs,
-                                           revealed_indices, stride=E // L)
+        if use_jit:
+            msel = jit_lde.reveal_rows(main_coeffs, eval_dom, L,
+                                       revealed_indices)
+            a3 = jit_lde.reveal_rows(aux_coeffs, eval_dom, L,
+                                     revealed_indices).transpose(1, 0, 2)
+            qsel = gf.to_u64(segs.index_select(2, torch.as_tensor(
+                np.asarray(revealed_indices, np.int64), device=dev)))
+        else:
+            msel, a3, qsel = _reveal_gather_fn(main_lde, aux_lde, segs,
+                                               revealed_indices,
+                                               stride=E // L)
         main_rows = [[int(v) for v in msel[:, j]]
                      for j in range(len(revealed_indices))]
         proof_stream.enqueue(ProofItem("MasterMainTableRows", main_rows))
@@ -722,21 +767,20 @@ def _commit_bfe(cols, rand, trace_dom, eval_dom):
     the trace interpolant plus Z_trace(x) * r(x), evaluated on eval_dom.
 
     cols: int64 (..., h) trace values on trace_dom; rand: int64 (..., ntr)
-    randomizer coefficients. The zerofier product is formed in the
-    coefficient domain — x^h r(x) - offset^h r(x) — so one NTT of length E
-    evaluates the whole polynomial (the same field elements as adding
-    Z(x_i) * r(x_i) point by point). Returns int64 (..., E)."""
-    h = trace_dom.length
-    E = eval_dom.length
-    ntr = rand.shape[-1]
-    coeffs = torch.zeros(cols.shape[:-1] + (E,), dtype=torch.int64,
-                         device=cols.device)
-    coeffs[..., :h] = ntt.intt(cols, trace_dom.offset)
-    del cols
-    coeffs[..., h:h + ntr] = gf.add(coeffs[..., h:h + ntr], rand)
-    off_h = pow(trace_dom.offset, h, P)
-    coeffs[..., :ntr] = gf.sub(coeffs[..., :ntr], gf.mul_const(rand, off_h))
-    return ntt.ntt(coeffs, eval_dom.offset)
+    randomizer coefficients. The polynomial is formed in the coefficient
+    domain (`jit_lde.committed_coefficients`), so one NTT of length E
+    evaluates it (the same field elements as adding Z(x_i) * r(x_i) point
+    by point). Returns the coefficients int64 (..., n), n the power of two
+    above h + ntr - 1, and the codewords int64 (..., E)."""
+    n = 1 << (trace_dom.length + rand.shape[-1] - 1).bit_length()
+    coeffs = jit_lde.committed_coefficients(cols, rand, trace_dom, n)
+    return coeffs, ntt.ntt(coeffs, eval_dom.offset, eval_dom.length)
+
+
+def _merkle_tree(digests):
+    """The Merkle tree over leaf digests (5, L): K1 per layer."""
+    return merkle.MerkleTree.from_flat(tip5_kernel.merkle_flat(digests),
+                                       digests.shape[1])
 
 
 def _commit_tree(rows, num_leafs):
@@ -804,17 +848,10 @@ def _quotient_chunk_fn(main, aux, next_main, next_aux, ch, ws, xs, h,
     return acc
 
 
-def _all_quotients_combined_device(main_q, aux_q, trace_dom, quot_dom,
-                                   challenges, quot_weights):
-    """master_table.rs:1264-1363 on tensors: run the compiled AIR tapes
-    over the quotient domain, in chunks of _QUOTIENT_CHUNK_ROWS rows, and
-    combine with the weights and zerofier inverses.
-
-    main_q: int64 (NM, Q); aux_q: XFE (3, NA, Q). Returns XFE (3, Q)."""
+def _quotient_inputs(challenges, quot_weights, dev):
+    """The challenges, XFE (3, 63), and each phase's constraint weights,
+    XFE (3, k), on `dev`."""
     air = master_air()
-    dev = main_q.device
-    Q = quot_dom.length
-    unit = Q // trace_dom.length
     ch = gfx.from_u64(np.array(challenges.challenges, np.uint64), dev)
     w = np.array(quot_weights, np.uint64)  # (num_constraints, 3)
     ws, off = [], 0
@@ -822,16 +859,38 @@ def _all_quotients_combined_device(main_q, aux_q, trace_dom, quot_dom,
         k = len(air.constraints[ph])
         ws.append(gfx.from_u64(w[off:off + k], dev))
         off += k
-    xs = gf.powers(quot_dom.generator, Q, quot_dom.offset, dev)
-    gen_inv = bfe.inv(trace_dom.generator)
+    return ch, ws
 
-    C_ = min(Q, _QUOTIENT_CHUNK_ROWS)
-    out = torch.empty((3, Q), dtype=torch.int64, device=dev)
-    for s in range(0, Q, C_):
+
+def _quotients_on_domain(main, aux, dom, shift, trace_dom, ch, ws):
+    """The combined quotient at every point of `dom` from the committed
+    values there (main int64 (NM, N), aux XFE (3, NA, N)), in chunks of
+    _QUOTIENT_CHUNK_ROWS rows; a row's next row lies `shift` rows ahead,
+    cyclically. Returns XFE (3, N)."""
+    dev = main.device
+    N = dom.length
+    xs = gf.powers(dom.generator, N, dom.offset, dev)
+    gen_inv = bfe.inv(trace_dom.generator)
+    C_ = min(N, _QUOTIENT_CHUNK_ROWS)
+    out = torch.empty((3, N), dtype=torch.int64, device=dev)
+    for s in range(0, N, C_):
         idx = torch.arange(s, s + C_, device=dev)
-        nidx = (idx + unit) % Q
+        nidx = (idx + shift) % N
         out[:, s:s + C_] = _quotient_chunk_fn(
-            main_q.index_select(1, idx), aux_q.index_select(2, idx),
-            main_q.index_select(1, nidx), aux_q.index_select(2, nidx),
+            main.index_select(1, idx), aux.index_select(2, idx),
+            main.index_select(1, nidx), aux.index_select(2, nidx),
             ch, ws, xs[s:s + C_], trace_dom.length, gen_inv)
     return out
+
+
+def _all_quotients_combined_device(main_q, aux_q, trace_dom, quot_dom,
+                                   challenges, quot_weights):
+    """master_table.rs:1264-1363 on tensors: run the compiled AIR tapes
+    over the quotient domain, in chunks of _QUOTIENT_CHUNK_ROWS rows, and
+    combine with the weights and zerofier inverses.
+
+    main_q: int64 (NM, Q); aux_q: XFE (3, NA, Q). Returns XFE (3, Q)."""
+    ch, ws = _quotient_inputs(challenges, quot_weights, main_q.device)
+    return _quotients_on_domain(main_q, aux_q, quot_dom,
+                                quot_dom.length // trace_dom.length,
+                                trace_dom, ch, ws)

@@ -1060,18 +1060,35 @@ def _derived_fill_tape(main_only: bool):
     return compile_tape(steps, out_ids), tuple(cols), tuple(zero_last)
 
 
+# Rows of one pass of a derived-column tape: its value banks and group
+# temporaries are O(slots x rows) of device memory (the aux tape has 247
+# base and 390 extension slots), so tall tables run in chunks.
+_FILL_CHUNK_ROWS = 1 << 17
+
+
 def _derived_fill_fn(main_only: bool, main_cols, aux_cols, challenges):
-    """Run the derived-column tape over all rows. main_cols: int64 (nm, h);
+    """Run the derived-column tape over all rows, in chunks of
+    _FILL_CHUNK_ROWS rows, each with its next rows (the row after the
+    chunk's last, cyclically) gathered. main_cols: int64 (nm, h);
     aux_cols: XFE (3, na, h) or None; challenges: XFE (3, 63) or None.
     Returns (XFE (3, n_derived, h), column ids); base outputs are lifted."""
     from ..air.compile import run_tape_scan
 
     tape, cols, zero_last = _derived_fill_tape(main_only)
-    next_main = torch.roll(main_cols, -1, dims=1)
-    next_aux = None if aux_cols is None else torch.roll(aux_cols, -1, dims=2)
-    out = run_tape_scan(tape, main_cols, aux_cols, challenges,
-                        next_main=next_main, next_aux=next_aux)
-    out[:, torch.as_tensor(zero_last, device=out.device), -1] = 0
+    dev = main_cols.device
+    h = main_cols.shape[-1]
+    out = torch.empty((3, len(cols), h), dtype=torch.int64, device=dev)
+    for s in range(0, h, _FILL_CHUNK_ROWS):
+        e = min(s + _FILL_CHUNK_ROWS, h)
+        idx = torch.arange(s, e, device=dev)
+        nidx = (idx + 1) % h
+        out[:, :, s:e] = run_tape_scan(
+            tape, main_cols.index_select(1, idx),
+            None if aux_cols is None else aux_cols.index_select(2, idx),
+            challenges, next_main=main_cols.index_select(1, nidx),
+            next_aux=(None if aux_cols is None
+                      else aux_cols.index_select(2, nidx)))
+    out[:, torch.as_tensor(zero_last, device=dev), -1] = 0
     return out, [col for _, col in cols]
 
 

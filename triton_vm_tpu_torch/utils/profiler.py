@@ -142,6 +142,19 @@ def span(name: str, category: str | None = None):
         prof.exit(name)
 
 
+@contextmanager
+def device_span(name: str, category: str | None, device):
+    """`span` for work enqueued on `device`: on a CUDA device the stream
+    is synchronised before the span closes, so it holds its own device
+    work."""
+    with span(name, category):
+        yield
+        if device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(device)
+
+
 def enter(name: str, category: str | None = None) -> None:
     """Low-level span open (for stage-marker style callers)."""
     if _ACTIVE is not None:
