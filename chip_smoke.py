@@ -41,41 +41,66 @@ non-zero and prints no result line:
    (`config.overwrite_lde_trace_caching_to(CacheDecision.JIT)`, 4 cosets
    a table): the proof must equal spin_65536's word for word; verify,
    tamper check;
-9. [spin_1048576] the main path at padded height 2^20 (`spin(20)`, LDT
+9. [recursive_verifier] BASELINE config 5, the verifier in the VM, as
+   the JAX bench builds it (bench.py:107-121), all with the port:
+   fibonacci input 7 proven with Stark() on the card (digest held against
+   the JAX package's), `models/recursive_verifier.build` for one revealed
+   index; the in-VM AIR evaluation within 200 cycles of the
+   specification's 33,998 rows, the `combined` trace's table heights
+   equal to the JAX package's (padded height 2^17), a tampered revealed
+   row rejected in the VM (VMError); then the `combined` execution
+   proven on the card with Stark() (STIR, cached LDE, both asserted),
+   verified, a tampered word rejected, with the stage spans, the RAM
+   table's Bezout step as `fill main/RAM Bezout`, the peak device memory
+   and the K1/K2 launches of the prove;
+10. [spin_1048576] the main path at padded height 2^20 (`spin(20)`, LDT
    domain 2^23), where the cache decision chooses JIT on an 80 GB card
    (asserted from the prove's JIT spans): prove, verify, tamper check,
    with the stage spans, the JIT spans within them and the peak device
    memory;
-10. [witness] the device-resident witness (`main_witness_dev`,
-   `aux_witness_dev`) on the card for `u32_mix` and `spin(12)`, word for
+11. [witness] the device-resident witness (`main_witness_dev`,
+   `aux_witness_dev`) on the card for `u32_mix`, `spin(12)` and config
+   5's `fs_replay` and `queries` sections (padded height 2^16 each;
+   their host oracles run in two worker processes from the end of the
+   recursive_verifier path on, beside the paths that follow), word for
    word against the host oracle of tables/master.py, with the device and
-   host times at spin(12).
+   host times.
 
 [spin_262144] and [spin_524288], run only when `--phases` names them,
 prove `spin(18)` and `spin(19)` (padded heights 2^18 and 2^19, LDT
 domains 2^21 and 2^22) on the cached path the heuristic chooses there
-(asserted), to record its peak device memory.
+(asserted), to record its peak device memory. [recursive_verifier_full],
+also only when named, is config 5 with every revealed index (173) checked
+in the VM, a full verification: padded height 2^21, JIT asserted; before
+it, K1 at B = 2^23 and K2 at its shapes (2^22 rows of 379 and 273
+column-major, 2^24 rows of 15, 2^22 rows of 12) are held against their
+plain versions, and both kernels' per-prove totals are timed.
 
-The kernels phase also holds K1 at B = 2^22, K2 at 2^21 rows of 379
-and 273 (column-major, a JIT coset as the commit reads it), 2^23 rows of
-15 and 2^21 rows of 12 (the widest STIR tree's leaves) against their
-plain versions, and sums K1 and K2 per spin_1048576
-prove. `torch.cuda.empty_cache()` runs before each proving path, so one
-path's cached blocks move neither the next one's cache decision nor its
-peak. The launch counts of both kernels are set to 0 just before each
-proving path (phases 4-9) and read just after it; both must be above 0
-on every path, and every spin prove must launch K1 once per Merkle layer
-and K2 once per committed table (once per hashed coset of the main and
-aux tables on the JIT path) and STIR tree, as the per-prove totals
-assume. The line before the last is a JSON object with each kernel's
-numbers (launches summed over the paths); the last line is the device
+The kernels phase also holds K1 at B = 2^20 and 2^22, K2 at 2^20 rows of
+379, 273 and 15 (column-major, the recursive_verifier prove's commits),
+2^21 rows of 379 and 273 (column-major, a JIT coset as the commit reads
+it), 2^23 rows of 15 and 2^21 rows of 12 (the widest STIR tree's leaves)
+against their plain versions, and sums K1 and K2 per recursive_verifier
+and per spin_1048576 prove. `torch.cuda.empty_cache()` runs before each
+proving path, so one path's cached blocks move neither the next one's
+cache decision nor its peak. The launch counts of both kernels are set to
+0 just before each proving path (phases 4-10) and read just after it;
+both must be above 0 on every path, and every spin and config 5 prove
+must launch K1 once per Merkle layer and K2 once per committed table
+(once per hashed coset of the main and aux tables on the JIT path) and
+STIR tree, as the per-prove totals assume. The line before the last is a
+JSON object with each kernel's numbers (launches summed over every path,
+config 5's inner proof and build included); the last line is the device
 record. Needs one card, no network; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -102,10 +127,34 @@ JAX_FIB85_DIGEST = (6144958900407217928, 9077105590016610808,
 JAX_FIB85_STIR_DIGEST = (2557357267674768290, 7933928826770184855,
                          14971441563586756986, 17186831512452120839,
                          5748930431668251739)
+# The same for the JAX package's proof of fibonacci input 7 with Stark()
+# and the same seed, the inner proof of BASELINE config 5 (the JAX
+# bench.py's TVM_BENCH=recursive_verifier): the command above with
+# PublicInput([7]) and .with_input([7]).
+JAX_FIB7_DIGEST = (16776481165773445315, 11632406580342972184,
+                   4551248486225805797, 9432930646896196063,
+                   16369719787940908687)
+# Config 5's verifier-core program (models/recursive_verifier.build on
+# that proof): revealed indices checked in-VM, the table heights of the
+# JAX package's trace of its `combined` section, and log2 of the padded
+# height. Computed on the CPU with triton_vm_tpu.models.recursive_verifier
+# .build(claim, proof, Stark(), num_queries), then VM.trace_execution of
+# programs["combined"] with its non-determinism and aet.height_of_table.
+RV_CELLS = {
+    "recursive_verifier": (1, dict(
+        processor=53823, op_stack=97202, ram=43793, hash=60982,
+        program=94090, cascade=65529, lookup=256, u32=102,
+        jump_stack=53823), 17),
+    "recursive_verifier_full": (173, dict(
+        processor=795143, op_stack=1238250, ram=538637, hash=903712,
+        program=1313740, cascade=65536, lookup=256, u32=11017,
+        jump_stack=795143), 21),
+}
 PATHS = ("fib_1024", "spin_32768", "fib_1024_stir", "spin_65536",
-         "spin_65536_jit", "spin_1048576", "spin_262144", "spin_524288")
+         "spin_65536_jit", "recursive_verifier", "spin_1048576",
+         "spin_262144", "spin_524288", "recursive_verifier_full")
 PHASES = ("kernels",) + PATHS + ("witness",)
-OPTIONAL_PHASES = ("spin_262144", "spin_524288")
+OPTIONAL_PHASES = ("spin_262144", "spin_524288", "recursive_verifier_full")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPTIONAL_PHASES)
 SPIN_HEIGHTS = {"spin_32768": 15, "spin_65536": 16, "spin_65536_jit": 16,
                 "spin_1048576": 20, "spin_262144": 18, "spin_524288": 19}
@@ -282,8 +331,9 @@ def phase_k1(rng, bound):
     from triton_vm_tpu_torch.ops import gf, tip5_cuda
 
     errs = []
-    # the widest Merkle layer of a 2^23-leaf tree (spin_1048576) too
-    for b in (1 << 18, (1 << 18) + 3, 1 << 22):
+    # the widest Merkle layers of a 2^21-leaf tree (recursive_verifier)
+    # and of a 2^23-leaf tree (spin_1048576) too
+    for b in (1 << 18, (1 << 18) + 3, 1 << 20, 1 << 22):
         s = gf.from_u64(random_field(rng, (16, b)), "cuda")
         errs.append(max_abs_err(tip5_cuda.permutation(s),
                                 tip5_cuda.permutation_plain(s)))
@@ -326,6 +376,7 @@ def phase_k1(rng, bound):
                        bound(2 * 16 * 8 * (1 << k), 1 << k)[0])
     per_prove = {}
     for label, log2_height in (("spin_32768", 15), ("spin_65536", 16),
+                               ("recursive_verifier", 17),
                                ("spin_1048576", 20)):
         batches = k1_batches_per_prove(log2_height)
         per_prove[label] = (sum(by_batch[k][0] for k in batches),
@@ -418,12 +469,14 @@ def phase_k2(rng, bound):
 
     for k in ldt_tree_leaves(Stark().ldt(1 << 16)):
         per_prove["spin_65536"].append(timed_bound(leaves[:1 << k], 40))
-    # spin_1048576 (JIT): a coset of the main and aux tables, 2^21 rows of
-    # 379 and 273 read column-major in place, and the quotient table's
-    # 2^23 rows of 15, each held against the plain version; then the
-    # leaf rows of each STIR tree (2^21 down to 2^15)
+    # recursive_verifier (cached, padded height 2^17): the three tables at
+    # 2^20 rows, column-major; spin_1048576 (JIT): a coset of the main and
+    # aux tables, 2^21 rows of 379 and 273 read column-major in place, and
+    # the quotient table's 2^23 rows of 15; each held against the plain
+    # version; then the leaf rows of each STIR tree (2^21 down to 2^15)
     by_shape = {}
-    for rb, n in ((1 << 21, 379), (1 << 21, 273), (1 << 23, 15)):
+    for rb, n in ((1 << 20, 379), (1 << 20, 273), (1 << 20, 15),
+                  (1 << 21, 379), (1 << 21, 273), (1 << 23, 15)):
         rows = gf.from_u64(random_field(rng, (n, rb)), "cuda").T
         t0 = time.perf_counter()
         errs.append(max_abs_err(tip5_cuda.sponge_absorb_rows(rows),
@@ -444,12 +497,14 @@ def phase_k2(rng, bound):
     if errs[-1]:
         raise AssertionError(f"K2 disagrees with its plain version at "
                              f"2^21 x 12: {errs[-1]}")
-    for rb, n in k2_launches_per_prove(20, jit=True):
-        if (rb, n) not in by_shape:
-            assert n == 12
-            by_shape[rb, n] = timed_bound(leaves[:rb], 20)
-    per_prove["spin_1048576"] = [by_shape[key] for key in
-                                 k2_launches_per_prove(20, jit=True)]
+    for label, log2_height, jit in (("recursive_verifier", 17, False),
+                                    ("spin_1048576", 20, True)):
+        launches = k2_launches_per_prove(log2_height, jit)
+        for rb, n in launches:
+            if (rb, n) not in by_shape:
+                assert n == 12
+                by_shape[rb, n] = timed_bound(leaves[:rb], 20)
+        per_prove[label] = [by_shape[key] for key in launches]
     for (rb, n), (t, bms, by) in by_shape.items():
         if n != 12:
             log(f"K2 2^{rb.bit_length() - 1} x {n}: kernel {t:.4f} ms, "
@@ -457,8 +512,8 @@ def phase_k2(rng, bound):
     totals = {label: (sum(t for t, _, _ in v), sum(bms for _, bms, _ in v))
               for label, v in per_prove.items()}
     err = max(errs)
-    log(f"K2 ok (max_abs_err 0, also at 2^19 x 379, 273 and 15, 2^21 x "
-        f"379, 273 and 12, 2^23 x 15); 2^18 x "
+    log(f"K2 ok (max_abs_err 0, also at 2^19 x 379, 273 and 15, 2^20 x "
+        f"379, 273 and 15, 2^21 x 379, 273 and 12, 2^23 x 15); 2^18 x "
         f"379: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_by}); 2^17 x 12: kernel "
         f"{by_width['12'][0]:.4f} ms, plain {plain12_ms:.2f} ms, bound "
@@ -489,7 +544,8 @@ def _launches_since(before):
     return {k: v - before[k] for k, v in tip5_cuda.launches.items()}
 
 
-def prove_and_verify(label, program, public_input, ldt_choice=None):
+def prove_and_verify(label, program, public_input, ldt_choice=None,
+                     non_determinism=None):
     """The main path on the card: prove_program (or, for an LDT chosen by
     the caller, `prove` with that Stark), then verify, then a tampered
     proof word must be rejected with a verification error (any other
@@ -511,15 +567,16 @@ def prove_and_verify(label, program, public_input, ldt_choice=None):
     profiler.start(label)
     t0 = time.perf_counter()
     if ldt_choice is None:
-        stark, claim, proof = tvm.prove_program(program, public_input,
-                                                seed=SEED, device="cuda")
+        stark, claim, proof = tvm.prove_program(
+            program, public_input, non_determinism, seed=SEED,
+            device="cuda")
     else:
         stark = tvm.Stark(ldt_choice=ldt_choice, device="cuda")
-        _, output = tvm.VM.trace_execution(program,
-                                           tvm.PublicInput(public_input))
+        _, output = tvm.VM.trace_execution(
+            program, tvm.PublicInput(public_input), non_determinism)
         claim = (tvm.Claim.about_program(program).with_input(public_input)
                  .with_output(output))
-        proof = tvm.prove(stark, claim, program, seed=SEED)
+        proof = tvm.prove(stark, claim, program, non_determinism, seed=SEED)
     prove_s = time.perf_counter() - t0
     profile = profiler.finish()
     stages = profile.spans()
@@ -568,11 +625,11 @@ def check_digest(label, proof, want):
     log(f"{label} proof digest equals the JAX package's")
 
 
-def check_spin(label, log2_height, stark, proof, launches, jit):
-    """A spin proof reached its padded height, with the LDT the default
-    Stark chooses there, and launched K1 once per Merkle layer and K2 once
-    per committed table (on the JIT path once per hashed coset of the main
-    and aux tables) and STIR tree, as the per-prove totals assume."""
+def check_proof(label, log2_height, stark, proof, launches, jit):
+    """A proof reached its padded height, with the LDT the default Stark
+    chooses there, and launched K1 once per Merkle layer and K2 once per
+    committed table (on the JIT path once per hashed coset of the main and
+    aux tables) and STIR tree, as the per-prove totals assume."""
     from triton_vm_tpu_torch.ldt.stir import Stir
 
     if proof.padded_height() != 1 << log2_height:
@@ -597,15 +654,18 @@ def check_spin(label, log2_height, stark, proof, launches, jit):
 def drive_path(name, proofs):
     """One proving path of the main path, with every launch count set to
     0 just before it and read just after; every kernel must have been
-    launched. `proofs` holds the spin proofs of this run by path name
-    (spin_65536_jit is held against spin_65536's). Returns the counts."""
+    launched. `proofs` holds the proofs of this run by path name
+    (spin_65536_jit is held against spin_65536's) and config 5's built
+    verifier core (the witness phase reuses it). Returns the counts."""
     from triton_vm_tpu_torch import config
     from triton_vm_tpu_torch.crypto import tip5
     from triton_vm_tpu_torch.models import example_programs as ex
     from triton_vm_tpu_torch.ops import tip5_cuda
 
     tip5_cuda.reset_launch_counts()
-    if name == "fib_1024":
+    if name in RV_CELLS:
+        drive_recursive_verifier(name, proofs)
+    elif name == "fib_1024":
         _, proof, _, _ = prove_and_verify(name, ex.fibonacci(), [85])
         check_digest(name, proof, JAX_FIB85_DIGEST)
     elif name == "fib_1024_stir":
@@ -629,7 +689,7 @@ def drive_path(name, proofs):
         if jit != (forced or name == "spin_1048576"):
             raise AssertionError(f"{name}: the prover took the "
                                  f"{'JIT' if jit else 'cached'} path")
-        check_spin(name, log2_height, stark, proof, launches, jit)
+        check_proof(name, log2_height, stark, proof, launches, jit)
         if forced:
             w, want = proof.words, proofs["spin_65536"].words
             digests = [tuple(tip5.hash_varlen([len(x) + 1, len(x)] + x))
@@ -648,65 +708,363 @@ def drive_path(name, proofs):
     return counts
 
 
-def phase_witness():
+def config5(num_queries):
+    """BASELINE config 5 as the JAX bench builds it (bench.py:107-121),
+    with the port: fibonacci input 7 proven with Stark() and seed SEED on
+    the card (its digest held against the JAX package's), then
+    `recursive_verifier.build` on that proof (the port's verifier on the
+    card fills the collector) for `num_queries` revealed indices."""
+    import triton_vm_tpu_torch as tvm
+    from triton_vm_tpu_torch.models import example_programs as ex
+    from triton_vm_tpu_torch.models import recursive_verifier as rv
+
+    t0 = time.perf_counter()
+    stark, claim, proof = tvm.prove_program(ex.fibonacci(), [7], seed=SEED,
+                                            device="cuda")
+    inner_s = time.perf_counter() - t0
+    check_digest("config 5 inner fib(7)", proof, JAX_FIB7_DIGEST)
+    t0 = time.perf_counter()
+    built = rv.build(claim, proof, stark, num_queries=num_queries)
+    log(f"config 5: inner proof padded height {proof.padded_height()}, "
+        f"{len(proof.words)} words, prove {inner_s:.3f} s; build of the "
+        f"verifier core for {num_queries} revealed indices "
+        f"{time.perf_counter() - t0:.3f} s")
+    return built
+
+
+def _divined(built):
+    from triton_vm_tpu_torch.vm.machine import NonDeterminism
+
+    return NonDeterminism(ram=dict(built.non_determinism.ram),
+                          digests=list(built.non_determinism.digests))
+
+
+def drive_recursive_verifier(name, proofs):
+    """Config 5's verifier-core program, proven on the card: the in-VM
+    AIR evaluation within 200 cycles of the specification's 33,998 rows,
+    the `combined` trace's table heights equal to the JAX package's, the
+    in-VM rejection of a tampered revealed row (VMError), then the
+    `combined` execution proven with Stark() (STIR; the cache decision
+    the heuristic makes, asserted), verified, a tampered word rejected,
+    the RAM table's Bezout span printed within `fill main`."""
+    import numpy as np
+
+    from triton_vm_tpu_torch.fields.bfe import P
+    from triton_vm_tpu_torch.models import recursive_verifier as rv
+    from triton_vm_tpu_torch.vm.machine import VM, PublicInput, VMError
+
+    num_queries, heights, log2_height = RV_CELLS[name]
+    built = config5(num_queries)
+    proofs[name + "_build"] = built
+    cycles = built.run("air_eval")["cycles"]
+    anchor = built.anchors["spec_static_air_eval_processor_rows"]
+    if abs(cycles - anchor) >= 200:
+        raise AssertionError(f"{name}: air_eval ran {cycles} cycles, not "
+                             f"within 200 of {anchor}")
+    t0 = time.perf_counter()
+    aet, _ = VM.trace_execution(built.programs["combined"], PublicInput([]),
+                                _divined(built))
+    trace_s = time.perf_counter() - t0
+    got = {t: aet.height_of_table(t) for t in heights}
+    if got != heights or aet.padded_height() != 1 << log2_height:
+        raise AssertionError(f"{name}: combined trace {got}, padded height "
+                             f"{aet.padded_height()}; the JAX package's "
+                             f"{heights}, 2^{log2_height}")
+    pointers = len(np.unique(np.asarray(aet.ram_rows, np.uint64)[:, 2]))
+    del aet
+    log(f"{name}: air_eval {cycles} cycles (specification: {anchor}); "
+        f"combined trace {json.dumps(got)} equals the JAX package's, padded "
+        f"height 2^{log2_height}, {pointers} unique RAM pointers; traced "
+        f"in {trace_s:.3f} s")
+    # one word of the revealed main row flipped in RAM: the in-VM Merkle
+    # walk must fail its root assertion
+    tampered = _divined(built)
+    addr = rv._q_main(0) + 7
+    tampered.ram[addr] = (tampered.ram.get(addr, 0) + 1) % P
+    try:
+        VM.trace_execution(built.programs["queries"], PublicInput([]),
+                           tampered)
+    except VMError as e:
+        log(f"{name}: tampered revealed row rejected in the VM ({e})")
+    else:
+        raise AssertionError(f"{name}: the verifier core accepted a "
+                             "tampered revealed row")
+    stark, proof, launches, nested = prove_and_verify(
+        name, built.programs["combined"], [], non_determinism=_divined(built))
+    jit = any(span.endswith("/JIT coset NTT") for span in nested)
+    log(f"{name}: cache decision {'JIT' if jit else 'CACHE'}")
+    if jit != (name == "recursive_verifier_full"):
+        raise AssertionError(f"{name}: the prover took the "
+                             f"{'JIT' if jit else 'cached'} path")
+    check_proof(name, log2_height, stark, proof, launches, jit)
+    if "fill main/RAM Bezout" not in nested:
+        raise AssertionError(f"{name}: no RAM Bezout span within fill main")
+    proofs[name] = proof
+
+
+def phase_kernels_full(rng, bound):
+    """Before recursive_verifier_full (padded height 2^21, JIT): K1 at B =
+    2^23 (the widest layer of its 2^24-leaf trees) and K2 at a JIT coset of
+    its main and aux tables (2^22 rows of 379 and 273, column-major), its
+    quotient table (2^24 rows of 15, column-major; the plain version in
+    slices of 2^22 rows) and its widest STIR tree's leaves (2^22 rows of
+    12), each held against the plain version (max_abs_err 0), then timed;
+    per-prove totals from every launch's shape. Returns the K1 and K2
+    records of the kernels line."""
+    import torch
+
+    from triton_vm_tpu_torch.crypto import tip5
+    from triton_vm_tpu_torch.ops import gf, tip5_cuda
+
+    def held(rows, slice_rows):
+        """max_abs_err of K2 against its plain version (run on slices of
+        `slice_rows` rows), and the plain version's seconds."""
+        got = tip5_cuda.sponge_absorb_rows(rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = torch.cat([tip5_cuda.sponge_absorb_rows_plain(
+            rows[i:i + slice_rows]) for i in range(0, rows.shape[0],
+                                                   slice_rows)], dim=1)
+        torch.cuda.synchronize()
+        return max_abs_err(got, want), time.perf_counter() - t0
+
+    def k2_bound(rb, n):
+        # ceil((n + 1) / RATE) permutations a row, as the kernel runs
+        return bound(8 * rb * (n + 5), rb * ((n + tip5.RATE) // tip5.RATE))
+
+    s = gf.from_u64(random_field(rng, (16, 1 << 23)), "cuda")
+    k1_err = max_abs_err(tip5_cuda.permutation(s),
+                         tip5_cuda.permutation_plain(s))
+    if k1_err:
+        raise AssertionError(f"K1 disagrees with its plain version at 2^23: "
+                             f"{k1_err}")
+    k1_ms = time_ms(lambda: tip5_cuda.permutation(s), 10)
+    k1_plain_ms = time_ms(lambda: tip5_cuda.permutation_plain(s), 1)
+    k1_bound = bound(2 * 16 * 8 * (1 << 23), 1 << 23)
+    del s
+    by_batch = {}
+    for k in range(24):
+        layer = gf.from_u64(random_field(rng, (16, 1 << k)), "cuda")
+        by_batch[k] = (time_ms(lambda: tip5_cuda.permutation(layer),
+                               20 if k > 12 else 200),
+                       bound(2 * 16 * 8 * (1 << k), 1 << k)[0])
+    batches = k1_batches_per_prove(21)
+    k1_total = (sum(by_batch[k][0] for k in batches),
+                sum(by_batch[k][1] for k in batches))
+    log(f"K1 2^23 equals its plain version: kernel {k1_ms:.4f} ms, plain "
+        f"{k1_plain_ms:.2f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]}); "
+        f"per recursive_verifier_full prove ({len(batches)} launches) "
+        f"{k1_total[0]:.4f} ms, bound {k1_total[1]:.4f} ms")
+
+    errs, by_shape = [], {}
+    for rb, n in ((1 << 22, 379), (1 << 22, 273), (1 << 24, 15),
+                  (1 << 22, 12)):
+        host = random_field(rng, (rb, n) if n == 12 else (n, rb))
+        rows = gf.from_u64(host, "cuda")
+        del host
+        rows = rows if n == 12 else rows.T
+        err, plain_s = held(rows, 1 << 22)
+        errs.append(err)
+        if err:
+            raise AssertionError(f"K2 disagrees with its plain version at "
+                                 f"2^{rb.bit_length() - 1} x {n}: {err}")
+        t = time_ms(lambda: tip5_cuda.sponge_absorb_rows(rows), 3)
+        bms, by = k2_bound(rb, n)
+        by_shape[rb, n] = (t, bms, by, plain_s)
+        log(f"K2 2^{rb.bit_length() - 1} x {n} "
+            f"{'row' if n == 12 else 'column'}-major equals its plain "
+            f"version (plain {plain_s:.1f} s): kernel {t:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+        if n == 12:
+            for rb2, n2 in k2_launches_per_prove(21, jit=True):
+                if n2 == 12 and (rb2, n2) not in by_shape:
+                    by_shape[rb2, n2] = (
+                        time_ms(lambda: tip5_cuda.sponge_absorb_rows(
+                            rows[:rb2]), 20),
+                        *k2_bound(rb2, n2), None)
+        del rows
+        torch.cuda.empty_cache()
+    launches = k2_launches_per_prove(21, jit=True)
+    k2_total = (sum(by_shape[key][0] for key in launches),
+                sum(by_shape[key][1] for key in launches))
+    log(f"K2 per recursive_verifier_full prove ({len(launches)} launches): "
+        f"{k2_total[0]:.3f} ms, bound {k2_total[1]:.3f} ms")
+    ms, bms, by, plain_s = by_shape[1 << 22, 379]
+    shapes = {f"2^{rb.bit_length() - 1}x{n}": v
+              for (rb, n), v in by_shape.items()}
+    return (dict(name="tip5_permutation", route="cuda", source=SOURCE,
+                 replaces="triton_vm_tpu/ops/tip5_pallas.py:157",
+                 max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
+                 bound_ms=k1_bound[0], bound_by=k1_bound[1], library_ms=None,
+                 per_prove_ms={"recursive_verifier_full": k1_total[0]},
+                 per_prove_bound_ms={
+                     "recursive_verifier_full": k1_total[1]}),
+            dict(name="tip5_sponge_rows", route="cuda", source=SOURCE,
+                 replaces="triton_vm_tpu/ops/tip5_pallas.py:233",
+                 max_abs_err=max(errs), ms=ms, plain_ms=plain_s * 1e3,
+                 bound_ms=bms, bound_by=by, library_ms=None,
+                 ms_by_shape={k: v[0] for k, v in shapes.items()},
+                 bound_ms_by_shape={k: v[1] for k, v in shapes.items()},
+                 per_prove_ms={"recursive_verifier_full": k2_total[0]},
+                 per_prove_bound_ms={
+                     "recursive_verifier_full": k2_total[1]}))
+
+
+def _host_witness(main_air, challenges, randomizer):
+    """The host oracle of tables/master.py (derived main columns,
+    extend_host, derived aux columns, the randomizer column): numpy
+    (h, 379) main and (h, 91, 3) aux tables."""
+    from triton_vm_tpu_torch.tables import master as mt
+
+    main = main_air.copy()
+    mt.fill_derived_main_columns(main)
+    aux = mt.extend_host(main, challenges)
+    mt.fill_derived_aux_columns(main, aux, challenges.challenges)
+    aux[:, mt.NUM_AUX - 1, :] = randomizer
+    return main, aux
+
+
+def _column_digests(main, aux):
+    """sha256 of every main column and every aux column (h rows each)."""
+    import hashlib
+
+    import numpy as np
+
+    return ([hashlib.sha256(np.ascontiguousarray(main[:, c])).hexdigest()
+             for c in range(main.shape[1])],
+            [hashlib.sha256(np.ascontiguousarray(aux[:, c])).hexdigest()
+             for c in range(aux.shape[1])])
+
+
+def _host_witness_of_trace(program, non_determinism, challenges, randomizer):
+    """In a worker process: trace `program`, fill its main table (the
+    Bezout step on the CPU) and run the host oracle; returns the column
+    digests, the padded height and the seconds."""
+    import torch
+
+    torch.set_num_threads(1)
+    from triton_vm_tpu_torch.tables import master as mt
+    from triton_vm_tpu_torch.vm.machine import VM, PublicInput
+
+    t0 = time.perf_counter()
+    aet, _ = VM.trace_execution(program, PublicInput([]), non_determinism)
+    h = aet.padded_height()
+    main_air = mt.fill_main_table(aet, padded_height=h, device="cpu")
+    digests = _column_digests(*_host_witness(main_air, challenges,
+                                             randomizer))
+    return digests, h, time.perf_counter() - t0
+
+
+def _challenges(rng, program, public_input, output):
+    """Random sampled challenges for a trace's claim."""
+    import triton_vm_tpu_torch as tvm
+    from triton_vm_tpu_torch.air.challenges import SAMPLE_COUNT, Challenges
+
+    claim = (tvm.Claim.about_program(program).with_input(public_input)
+             .with_output(output))
+    return Challenges([tuple(int(c) for c in row)
+                       for row in random_field(rng, (SAMPLE_COUNT, 3))],
+                      claim)
+
+
+def submit_config5_witness(pool, built):
+    """Trace config 5's fs_replay and queries sections (sponge_absorb_mem,
+    sponge_squeeze, merkle_step, the extension-field instructions and RAM
+    pointers from 2^40 to 2^50; padded height 2^16 each), draw their
+    challenges and randomizer columns, and submit their host oracles to
+    the worker processes of `pool`, which run while the card proves the
+    paths that follow. Returns {section: (aet, challenges, randomizer,
+    future)}."""
+    import numpy as np
+
+    import triton_vm_tpu_torch as tvm
+
+    rng = np.random.default_rng(18)
+    pending = {}
+    for section in ("fs_replay", "queries"):
+        program = built.programs[section]
+        aet, output = tvm.VM.trace_execution(program, tvm.PublicInput([]),
+                                             _divined(built))
+        challenges = _challenges(rng, program, [], output)
+        randomizer = random_field(rng, (aet.padded_height(), 3))
+        pending[section] = (aet, challenges, randomizer, pool.submit(
+            _host_witness_of_trace, program, _divined(built), challenges,
+            randomizer))
+    return pending
+
+
+def phase_witness(pending):
     """The device-resident witness on the card against the host oracle
     (tables/master.py: fill_derived_main_columns, extend_host,
     fill_derived_aux_columns and the randomizer write), word for word, on
     u32_mix (first, so the AIR and the tapes are built before spin(12) is
-    timed) and on spin(12)."""
+    timed) and on spin(12); then on config 5's sections that
+    `submit_config5_witness` handed to worker processes."""
     import numpy as np
     import torch
 
     import triton_vm_tpu_torch as tvm
-    from triton_vm_tpu_torch.air.challenges import SAMPLE_COUNT, Challenges
     from triton_vm_tpu_torch.models import example_programs as ex
     from triton_vm_tpu_torch.ops import gf
     from triton_vm_tpu_torch.tables import extend_device as ed
     from triton_vm_tpu_torch.tables import master as mt
 
     rng = np.random.default_rng(17)
-    spin_program, spin_iterations = ex.spin(12)
-    for label, program, public_input in (
-            ("u32_mix", ex.u32_mix(), [50]),
-            ("spin_4096", spin_program, [spin_iterations])):
-        aet, output = tvm.VM.trace_execution(program,
-                                             tvm.PublicInput(public_input))
-        claim = (tvm.Claim.about_program(program).with_input(public_input)
-                 .with_output(output))
-        h = aet.padded_height()
-        main_air = mt.fill_main_table(aet, padded_height=h)
-        challenges = Challenges(
-            [tuple(int(c) for c in row)
-             for row in random_field(rng, (SAMPLE_COUNT, 3))], claim)
-        randomizer = random_field(rng, (h, 3))
 
+    def device_witness(main_air, challenges, randomizer):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         main_dev = ed.main_witness_dev(main_air, "cuda")
         aux_dev = ed.aux_witness_dev(main_dev, challenges, randomizer)
         torch.cuda.synchronize()
         dev_s = time.perf_counter() - t0
+        return (_column_digests(gf.to_u64(main_dev).T,
+                                gf.to_u64(aux_dev).transpose(2, 0, 1)),
+                dev_s)
 
-        t0 = time.perf_counter()
-        main = main_air.copy()
-        mt.fill_derived_main_columns(main)
-        aux = mt.extend_host(main, challenges)
-        mt.fill_derived_aux_columns(main, aux, challenges.challenges)
-        aux[:, mt.NUM_AUX - 1, :] = randomizer
-        host_s = time.perf_counter() - t0
-
-        got_main = gf.to_u64(main_dev).T
-        got_aux = gf.to_u64(aux_dev).transpose(2, 0, 1)
+    def compare(label, got, want):
         bad = ([f"main {c}" for c in range(mt.NUM_MAIN)
-                if not np.array_equal(got_main[:, c], main[:, c])]
+                if got[0][c] != want[0][c]]
                + [f"aux {c}" for c in range(mt.NUM_AUX)
-                  if not np.array_equal(got_aux[:, c], aux[:, c])])
+                  if got[1][c] != want[1][c]])
         if bad:
             raise AssertionError(f"witness {label}: the device witness "
                                  f"differs from the host oracle in {bad}")
+
+    spin_program, spin_iterations = ex.spin(12)
+    for label, program, public_input in (
+            ("u32_mix", ex.u32_mix(), [50]),
+            ("spin_4096", spin_program, [spin_iterations])):
+        aet, output = tvm.VM.trace_execution(program,
+                                             tvm.PublicInput(public_input))
+        challenges = _challenges(rng, program, public_input, output)
+        h = aet.padded_height()
+        main_air = mt.fill_main_table(aet, padded_height=h, device="cuda")
+        randomizer = random_field(rng, (h, 3))
+        got, dev_s = device_witness(main_air, challenges, randomizer)
+        t0 = time.perf_counter()
+        main, aux = _host_witness(main_air, challenges, randomizer)
+        host_s = time.perf_counter() - t0
+        compare(label, got, _column_digests(main, aux))
         log(f"witness {label} (padded height {h}): 379 main and 91 aux "
             f"columns equal the host oracle; device {dev_s:.4f} s, host "
             f"{host_s:.4f} s")
+
+    for section, (aet, challenges, randomizer, host) in pending.items():
+        h = aet.padded_height()
+        main_air = mt.fill_main_table(aet, padded_height=h, device="cuda")
+        got, dev_s = device_witness(main_air, challenges, randomizer)
+        t0 = time.perf_counter()
+        want, host_h, host_s = host.result()
+        if host_h != h:
+            raise AssertionError(f"witness config 5 {section}: padded "
+                                 f"height {h} here, {host_h} in the worker")
+        compare(f"config 5 {section}", got, want)
+        log(f"witness config 5 {section} (padded height {h}): 379 main and "
+            f"91 aux columns equal the host oracle; device {dev_s:.4f} s, "
+            f"host (trace, fill and oracle in a worker process) "
+            f"{host_s:.1f} s, waited for here {time.perf_counter() - t0:.1f}"
+            f" s")
 
 
 def main(argv=None):
@@ -740,19 +1098,41 @@ def main(argv=None):
     report = phase_build()
     rng = np.random.default_rng(2024)
     kernels = []
+    bound = Bound() if phases & {"kernels", "recursive_verifier_full"} \
+        else None
     if "kernels" in phases:
-        bound = Bound()
         kernels = [phase_k1(rng, bound), phase_k2(rng, bound)]
+    if "recursive_verifier_full" in phases:
+        full = phase_kernels_full(rng, bound)
+        if not kernels:
+            kernels = list(full)
+        for k, f in zip(kernels, full):
+            if k is not f:
+                k["max_abs_err"] = max(k["max_abs_err"], f["max_abs_err"])
+                k["per_prove_ms"].update(f["per_prove_ms"])
+                k["per_prove_bound_ms"].update(f["per_prove_bound_ms"])
+        torch.cuda.empty_cache()
     launches, proofs = {}, {}
-    for path in PATHS:
-        if path in phases:
-            for kernel, n in drive_path(path, proofs).items():
-                launches[kernel] = launches.get(kernel, 0) + n
-    if launches:
-        log(f"kernel launches on the main path, all paths: "
-            f"{json.dumps(launches)}")
-    if "witness" in phases:
-        phase_witness()
+    # the host oracles of the witness phase's config 5 sections run in
+    # two worker processes, from the end of the recursive_verifier path
+    with (concurrent.futures.ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn"))
+          if "witness" in phases else contextlib.nullcontext()) as pool:
+        pending = None
+        for path in PATHS:
+            if path in phases:
+                for kernel, n in drive_path(path, proofs).items():
+                    launches[kernel] = launches.get(kernel, 0) + n
+                if path == "recursive_verifier" and pool is not None:
+                    pending = submit_config5_witness(
+                        pool, proofs["recursive_verifier_build"])
+        if launches:
+            log(f"kernel launches on the main path, all paths: "
+                f"{json.dumps(launches)}")
+        if "witness" in phases:
+            if pending is None:
+                pending = submit_config5_witness(pool, config5(1))
+            phase_witness(pending)
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
         k["regs"] = report[k["name"] + "_kernel"]["registers"]

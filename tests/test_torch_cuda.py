@@ -97,7 +97,7 @@ def test_witness_on_the_card_equals_cpu(cuda):
     from triton_vm_tpu_torch.vm.machine import VM, PublicInput
 
     aet, _ = VM.trace_execution(ex.u32_mix(), PublicInput([50]))
-    main_air = mt.fill_main_table(aet)
+    main_air = mt.fill_main_table(aet, device="cuda")
     challenges = [tuple(int(c) for c in row) for row in _field(63, (63, 3))]
     randomizer = _field(5, (main_air.shape[0], 3))
     out = {}
@@ -169,3 +169,35 @@ def test_stir_transcript_on_the_card_equals_cpu(cuda):
     assert words["cuda"] == words["cpu"]
     indices, _ = stir.verify(ProofStream.decode(words["cuda"][1]), cuda)
     assert indices == words["cuda"][0]
+
+
+def test_bezout_on_the_card_equals_cpu(cuda):
+    """The RAM table's Bezout coefficients (ops/poly.py) on the card equal
+    the CPU's and, at a small size, the O(N^2) plain version's."""
+    from triton_vm_tpu_torch.tables import master as mt
+
+    rng = np.random.default_rng(6)
+    for n in (1, 5, 300, 5000):
+        roots = sorted({int(x) for x in rng.integers(1 << 40, 1 << 50,
+                                                      size=n)})
+        got = mt.bezout_coefficient_polynomials_coefficients(roots, cuda)
+        assert got == mt.bezout_coefficient_polynomials_coefficients(
+            roots, "cpu")
+        if n <= 300:
+            assert got == mt._bezout_plain(roots)
+
+
+def test_low_security_testable_program_on_the_card(cuda):
+    """`TestableProgram` proves and verifies on the card by default, and
+    its low-security proof hashes to the JAX package's digest that
+    tests/test_torch_testing.py pins."""
+    from triton_vm_tpu_torch.crypto import tip5
+    from triton_vm_tpu_torch.models import example_programs as ex
+    from triton_vm_tpu_torch.testing import TestableProgram
+
+    tp = TestableProgram(ex.fibonacci()).with_input([7])
+    w = tp.prove_and_verify(seed=bytes(range(32))).words
+    assert tp.stark.device.type == "cuda"
+    assert tuple(tip5.hash_varlen([len(w) + 1, len(w)] + w)) == (
+        5451660588470763885, 7307061866663976276, 14817866948123220096,
+        49005092894082727, 15240332116246682258)

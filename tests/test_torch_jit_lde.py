@@ -134,7 +134,7 @@ def test_jit_quotient_codeword_matches_cached(monkeypatch):
     _, ntr, trace_dom, rand_dom, quot_dom, _ = tvm.Stark(
         device="cpu").derive_domains(aet.padded_height())
     h, n = trace_dom.length, rand_dom.length
-    main = mt.fill_main_table(aet, padded_height=h)
+    main = mt.fill_main_table(aet, padded_height=h, device="cpu")
     mt.fill_derived_main_columns(main)
     challenges = Challenges([tuple(int(c) for c in row)
                              for row in _field(4, (SAMPLE_COUNT, 3))], claim)

@@ -73,7 +73,7 @@ def fib_trace():
     _, ntr, trace_dom, _, _, ldt_dom = prover.Stark(
         device="cpu").derive_domains(aet.padded_height())
     h = trace_dom.length
-    main = mt.fill_main_table(aet, padded_height=h)
+    main = mt.fill_main_table(aet, padded_height=h, device="cpu")
     mt.fill_derived_main_columns(main)
     challenges = Challenges(
         [tuple(int(c) for c in row) for row in

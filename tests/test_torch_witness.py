@@ -171,7 +171,7 @@ def test_transition_derived_columns_zero_in_last_row():
     reads or not, on the port's own trace of fib(10)."""
     air = master_air()
     aet, _ = VM.trace_execution(ex.fibonacci(), PublicInput([10]))
-    main = ed.main_witness_dev(mt.fill_main_table(aet), "cpu")
+    main = ed.main_witness_dev(mt.fill_main_table(aet, device="cpu"), "cpu")
     tran = [col for _, col, _ in substitution_pairs(air.main_subs["tran"])]
     assert len(tran) == 210
     assert not main[tran, -1].any()

@@ -9,6 +9,7 @@ entry point runs on a CUDA card unless the caller passes device="cpu".
 
 from .isa.program import Program, triton_asm, triton_program  # noqa: F401
 from .ldt.fri import Fri, FriParameters  # noqa: F401
+from .ldt.stir import Stir, StirParameters  # noqa: F401
 from .stark.proof_stream import Claim, Proof  # noqa: F401
 from .stark.prover import (Prover, ProvingError, Stark,  # noqa: F401
                            VerificationError, Verifier)

@@ -159,6 +159,18 @@ class Stark:
         self.soundness = soundness
         self.device = resolve_device(device)
 
+    def with_ldt_choice(self, choice):
+        return Stark(self.security_level, self.log2_ldt_expansion_factor,
+                     choice, self.soundness, self.device)
+
+    def with_soundness(self, soundness):
+        return Stark(self.security_level, self.log2_ldt_expansion_factor,
+                     self.ldt_choice, soundness, self.device)
+
+    @classmethod
+    def low_security(cls, device="cuda"):
+        return cls(32, 2, device=device)
+
     # -- degree bookkeeping ------------------------------------------------
 
     @staticmethod
@@ -259,8 +271,8 @@ class Stark:
     def prove(self, claim: Claim, aet, seed: bytes = None) -> Proof:
         return Prover(self, seed).prove(claim, aet)
 
-    def verify(self, claim: Claim, proof: Proof):
-        return Verifier(self).verify(claim, proof)
+    def verify(self, claim: Claim, proof: Proof, collector=None):
+        return Verifier(self).verify(claim, proof, collector)
 
 
 # ----------------------------------------------------------------- prover
@@ -310,7 +322,7 @@ class Prover:
         # ------------------------------------------------------ main table
         _trace("fill main", "witness", dev)
         main = extend_device.main_witness_dev(
-            mt.fill_main_table(aet, padded_height=h), dev)    # (NM, h)
+            mt.fill_main_table(aet, padded_height=h, device=dev), dev)
         main_rand = _drbg_bfes_rows(self.seed, range(NUM_MAIN), ntr)
 
         _trace("main LDE", "LDE", dev)
@@ -519,10 +531,19 @@ class Verifier:
     def __init__(self, parameters: Stark):
         self.parameters = parameters
 
-    def verify(self, claim: Claim, proof: Proof):
-        """Verify `proof` against `claim`; raises on rejection."""
+    def verify(self, claim: Claim, proof: Proof,
+               collector: dict | None = None):
+        """Verify `proof` against `claim`; raises on rejection.
+
+        `collector`, when given, is filled with the verifier's
+        intermediate values (the Fiat-Shamir events, challenges, OOD rows,
+        weights, revealed rows, ...), all host values: Python ints and
+        tuples, numpy uint64 arrays. models/recursive_verifier.py lays
+        them into Triton VM RAM."""
         stark = self.parameters
         proof_stream = ProofStream.decode(proof.words)
+        if collector is not None:
+            collector["fs_events"] = proof_stream.enable_fs_recording()
         proof_stream.alter_fiat_shamir_state_with(claim.encode())
 
         log2_padded_height = proof_stream.dequeue().expect("Log2PaddedHeight")
@@ -532,6 +553,7 @@ class Verifier:
         ldt, ntr, trace_dom, rand_dom, quot_dom, ldt_dom = \
             stark.derive_domains(padded_height)
         trace_domain_len = rand_dom.length // 2
+        merkle_height = ldt_dom.length.bit_length() - 1
         trace_gen = Domain(trace_domain_len).generator
 
         main_root = proof_stream.dequeue().expect("MerkleRoot")
@@ -629,15 +651,15 @@ class Verifier:
                     digests, auth):
                 raise VerificationError(
                     f"{what} codeword authentication failure")
-            return arr
+            return arr, digests, auth
 
-        main_arr = check_rows(
+        main_arr, main_digests, main_auth = check_rows(
             main_root, proof_stream.dequeue().expect("MasterMainTableRows"),
             "main")
-        aux_arr = check_rows(
+        aux_arr, aux_digests, aux_auth = check_rows(
             aux_root, proof_stream.dequeue().expect("MasterAuxTableRows"),
             "aux")
-        quot_arr = check_rows(
+        quot_arr, quot_digests, quot_auth = check_rows(
             quot_root,
             proof_stream.dequeue().expect("QuotientSegmentsElements"),
             "quotient")
@@ -684,6 +706,28 @@ class Verifier:
         acc = nf.xfe_sum(nf.xfe_mul(deep_vals, w_deep[None]), 1)
         if not np.array_equal(acc, np.asarray(revealed_values, np.uint64)):
             raise VerificationError("combination codeword mismatch")
+
+        if collector is not None:
+            collector.update(
+                padded_height=padded_height,
+                trace_domain_len=trace_domain_len,
+                trace_gen=trace_gen, merkle_height=merkle_height,
+                ldt_dom=ldt_dom, challenges=list(challenges.challenges),
+                quot_weights=list(quot_weights), alpha=alpha,
+                ood_main_curr=ood_main_curr, ood_aux_curr=ood_aux_curr,
+                ood_main_next=ood_main_next, ood_aux_next=ood_aux_next,
+                ood_quot_p=list(ood_quot_p), ood_quot_r=list(ood_quot_r),
+                init_vals=init_vals, cons_vals=cons_vals,
+                tran_vals=tran_vals, term_vals=term_vals,
+                weights=weights, revealed_indices=list(revealed_indices),
+                revealed_values=list(revealed_values),
+                main_rows=main_arr, aux_rows=aux_arr, quot_rows=quot_arr,
+                main_digests=main_digests, aux_digests=aux_digests,
+                quot_digests=quot_digests,
+                main_auth=main_auth, aux_auth=aux_auth,
+                quot_auth=quot_auth,
+                main_root=tuple(main_root), aux_root=tuple(aux_root),
+                quot_root=tuple(quot_root))
 
         if not proof_stream.is_exhausted():
             raise VerificationError("superfluous proof items")

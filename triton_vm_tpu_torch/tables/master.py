@@ -4,7 +4,9 @@ Transcribes the witness-side table logic of
 triton-vm/src/table/{master_table,program,processor,
 op_stack,ram,jump_stack,hash,cascade,lookup,u32}.rs.
 
-Main table: numpy uint64, shape (padded_height, 379), row-major host side.
+Main table: numpy uint64, shape (padded_height, 379), row-major host side;
+the RAM table's Bezout coefficients alone are computed on the prover's
+device (ops/poly.py), in the span `RAM Bezout` within `fill main`.
 Aux table: numpy uint64, shape (padded_height, 91, 3) (XFE coefficients).
 The prover fills the main table from the execution trace here. The
 derived (degree-lowering) columns and the sequential-scan aux columns
@@ -15,6 +17,7 @@ are the oracle of the prover's device witness (tables/extend_device.py).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..air import challenges as chal
 from ..air import circuit as C
@@ -25,6 +28,9 @@ from ..crypto import tip5
 from ..fields import bfe, poly, xfe
 from ..fields.bfe import P
 from ..isa.instruction import OPCODE_TO_NAME, _SPEC
+from ..ops import gf
+from ..ops import poly as dev_poly
+from ..utils import profiler
 from ..vm.aet import LOOKUP_TABLE_HEIGHT
 
 M = columns.main_index
@@ -60,13 +66,15 @@ def _batch_inverse_or_zero(values: np.ndarray) -> np.ndarray:
 
 # ============================================================== main table
 
-def fill_main_table(aet, padded_height=None) -> np.ndarray:
+def fill_main_table(aet, padded_height=None, device="cuda") -> np.ndarray:
+    """The main table from the execution trace, on the host; the RAM
+    table's Bezout coefficients are computed on `device`."""
     h = padded_height or aet.padded_height()
     main = np.zeros((h, NUM_MAIN), np.uint64)
 
     clk_jump_diffs = {"op_stack": [], "ram": [], "jump_stack": []}
     _fill_op_stack(main, aet, clk_jump_diffs)
-    _fill_ram(main, aet, clk_jump_diffs)
+    _fill_ram(main, aet, clk_jump_diffs, device)
     _fill_jump_stack(main, aet, clk_jump_diffs)
     _fill_processor(main, aet, clk_jump_diffs)
     _fill_program(main, aet)
@@ -181,7 +189,7 @@ def _pad_op_stack(main, aet):
     main[n:h, start:end] = template
 
 
-def _fill_ram(main, aet, clk_jump_diffs):
+def _fill_ram(main, aet, clk_jump_diffs, device):
     a = _rows_array(aet.ram_rows, 4)
     n = len(a)
     if n == 0:
@@ -200,7 +208,7 @@ def _fill_ram(main, aet, clk_jump_diffs):
     # pointer change (ram.rs:117-141).
     unique_ptrs, ranks = np.unique(s[:, 2], return_inverse=True)
     b0, b1 = bezout_coefficient_polynomials_coefficients(
-        [int(p) for p in unique_ptrs])
+        [int(p) for p in unique_ptrs], device)
     idx = len(unique_ptrs) - 1 - ranks
     main[:n, M("ram", "BezoutCoefficientPolynomialCoefficient0")] = \
         np.array(b0, np.uint64)[idx]
@@ -216,9 +224,26 @@ def _fill_ram(main, aet, clk_jump_diffs):
     clk_jump_diffs["ram"] = (s[1:, 0] - s[:-1, 0])[same_ptr]
 
 
-def bezout_coefficient_polynomials_coefficients(unique_roots):
+def bezout_coefficient_polynomials_coefficients(unique_roots,
+                                                device="cuda"):
     """(a, b) with a*rp + b*fd = 1, deg-padded to n coefficients
-    (triton-vm/src/table/ram.rs:162-206)."""
+    (triton-vm/src/table/ram.rs:162-206): lists of n ints, computed on
+    `device` in O(n log^2 n) (ops/poly.py: subproduct tree, scaled
+    remainder tree, Lagrange combination). The same ints as
+    `_bezout_plain`."""
+    if not unique_roots:
+        return [], []
+    device = torch.device(device)
+    with profiler.device_span("RAM Bezout", "witness", device):
+        roots = gf.from_u64(np.asarray(unique_roots, np.uint64), device)
+        a, b = dev_poly.bezout_coefficients(roots)
+        return gf.to_u64(a).tolist(), gf.to_u64(b).tolist()
+
+
+def _bezout_plain(unique_roots):
+    """The O(n^2) host version of
+    `bezout_coefficient_polynomials_coefficients` (list polynomials of
+    fields/poly.py), kept as the tests' oracle."""
     if not unique_roots:
         return [], []
     rp = poly.zerofier(unique_roots)
