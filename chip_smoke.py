@@ -41,7 +41,20 @@ non-zero and prints no result line:
    (`config.overwrite_lde_trace_caching_to(CacheDecision.JIT)`, 4 cosets
    a table): the proof must equal spin_65536's word for word; verify,
    tamper check;
-9. [recursive_verifier] BASELINE config 5, the verifier in the VM, as
+9. [mesh] the prover sharded over TVM_MESH=4 shards (parallel/mesh.py,
+   ops/ntt_sharded.py; shard i on cuda:(i % device_count), so all four on
+   one card of a one-card host), TVM_MESH restored afterwards: first K2
+   at a shard's commit block (2^17 rows of 379 and of 273, column-major
+   as the exchange delivers it) and K1 at a shard subtree's widest layer
+   (2^16) against their plain versions; then mesh_fib_1024
+   (`prove_program` on fibonacci input 85, digest held against the JAX
+   package's) and mesh_spin_65536 (spin(16), STIR, cached, the six-step
+   transform asserted in STIR's tall transforms): its proof must equal
+   spin_65536's from the same run word for word (spin_65536 runs first
+   whenever mesh does); verify, tamper check, stage spans, the peak of
+   every card, K1/K2 launches by card, prove wall-clock beside
+   spin_65536's;
+10. [recursive_verifier] BASELINE config 5, the verifier in the VM, as
    the JAX bench builds it (bench.py:107-121), all with the port:
    fibonacci input 7 proven with Stark() on the card (digest held against
    the JAX package's), `models/recursive_verifier.build` for one revealed
@@ -53,12 +66,12 @@ non-zero and prints no result line:
    verified, a tampered word rejected, with the stage spans, the RAM
    table's Bezout step as `fill main/RAM Bezout`, the peak device memory
    and the K1/K2 launches of the prove;
-10. [spin_1048576] the main path at padded height 2^20 (`spin(20)`, LDT
+11. [spin_1048576] the main path at padded height 2^20 (`spin(20)`, LDT
    domain 2^23), where the cache decision chooses JIT on an 80 GB card
    (asserted from the prove's JIT spans): prove, verify, tamper check,
    with the stage spans, the JIT spans within them and the peak device
    memory;
-11. [witness] the device-resident witness (`main_witness_dev`,
+12. [witness] the device-resident witness (`main_witness_dev`,
    `aux_witness_dev`) on the card for `u32_mix`, `spin(12)` and config
    5's `fs_replay` and `queries` sections (padded height 2^16 each;
    their host oracles run in two worker processes from the end of the
@@ -84,7 +97,7 @@ against their plain versions, and sums K1 and K2 per recursive_verifier
 and per spin_1048576 prove. `torch.cuda.empty_cache()` runs before each
 proving path, so one path's cached blocks move neither the next one's
 cache decision nor its peak. The launch counts of both kernels are set to
-0 just before each proving path (phases 4-10) and read just after it;
+0 just before each proving path (phases 4-11) and read just after it;
 both must be above 0 on every path, and every spin and config 5 prove
 must launch K1 once per Merkle layer and K2 once per committed table
 (once per hashed coset of the main and aux tables on the JIT path) and
@@ -151,13 +164,16 @@ RV_CELLS = {
         jump_stack=795143), 21),
 }
 PATHS = ("fib_1024", "spin_32768", "fib_1024_stir", "spin_65536",
-         "spin_65536_jit", "recursive_verifier", "spin_1048576",
+         "spin_65536_jit", "mesh", "recursive_verifier", "spin_1048576",
          "spin_262144", "spin_524288", "recursive_verifier_full")
 PHASES = ("kernels",) + PATHS + ("witness",)
 OPTIONAL_PHASES = ("spin_262144", "spin_524288", "recursive_verifier_full")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPTIONAL_PHASES)
 SPIN_HEIGHTS = {"spin_32768": 15, "spin_65536": 16, "spin_65536_jit": 16,
                 "spin_1048576": 20, "spin_262144": 18, "spin_524288": 19}
+MESH_SHARDS = 4  # TVM_MESH of the mesh phase
+# prove and verify wall-clock (s) of each path's proof, by label
+WALL = {}
 
 # Work of one Tip5 permutation in 32-bit integer multiplies (the H100's
 # integer pipe issues 64 of them per SM per clock; a 32 x 32 -> 64-bit
@@ -562,8 +578,11 @@ def prove_and_verify(label, program, public_input, ldt_choice=None,
     from triton_vm_tpu_torch.utils import profiler
 
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    cards = range(torch.cuda.device_count())
+    for card in cards:
+        torch.cuda.reset_peak_memory_stats(card)
     before = dict(tip5_cuda.launches)
+    before_dev = {d: dict(c) for d, c in tip5_cuda.launches_by_device.items()}
     profiler.start(label)
     t0 = time.perf_counter()
     if ldt_choice is None:
@@ -584,7 +603,9 @@ def prove_and_verify(label, program, public_input, ldt_choice=None,
     nested = {f"{profile.tasks[t.parent].name}/{t.name}":
               round(t.total_duration, 4)
               for t in profile.tasks if t.parent is not None}
-    launches = {"prove": _launches_since(before)}
+    launches = {"prove": _launches_since(before), "prove_by_device": {
+        d: {k: n - before_dev.get(d, {}).get(k, 0) for k, n in c.items()}
+        for d, c in tip5_cuda.launches_by_device.items()}}
     before = dict(tip5_cuda.launches)
     t0 = time.perf_counter()
     if not stark.verify(claim, proof):
@@ -602,10 +623,15 @@ def prove_and_verify(label, program, public_input, ldt_choice=None,
     if accepted:
         raise AssertionError(f"{label}: verify accepted a tampered proof")
     log(f"{label}: tampered proof rejected ({rejection})")
+    WALL[label] = (prove_s, verify_s)
     log(f"{label}: padded height {proof.padded_height()}, "
         f"{len(proof.words)} words, prove {prove_s:.3f} s, "
         f"verify {verify_s:.3f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if len(cards) > 1:
+        log(f"{label}: peak device memory by card (GiB): " + json.dumps({
+            f"cuda:{card}": round(torch.cuda.max_memory_allocated(card)
+                                  / 2**30, 2) for card in cards}))
     log(f"{label} stages (s): " + json.dumps(
         {name: round(sec, 4) for name, sec, _ in stages}))
     if nested:
@@ -651,6 +677,129 @@ def check_proof(label, log2_height, stark, proof, launches, jit):
                              f"{want_k2}")
 
 
+def mesh_launch_counts(log2_height, shards):
+    """K1 and K2 launches of a prove sharded over `shards` shards (cached
+    LDE): the main and aux trees take one K2 launch a shard and one K1
+    launch per layer of each shard's subtree, then one per layer of the
+    top log2(shards) layers on the lead device; the quotient tree and the
+    low-degree test's trees stay on the lead device."""
+    from triton_vm_tpu_torch import Stark
+    from triton_vm_tpu_torch.ldt.stir import Stir
+
+    ldt = Stark().ldt(1 << log2_height)
+    log_l = ldt.initial_domain().length.bit_length() - 1
+    log_d = shards.bit_length() - 1
+    leaves = ldt_tree_leaves(ldt)
+    k1 = 2 * (shards * (log_l - log_d) + log_d) + log_l + sum(leaves)
+    k2 = 2 * shards + 1 + (len(leaves) if isinstance(ldt, Stir) else 0)
+    return k1, k2
+
+
+def phase_mesh_kernels(rng, bound):
+    """K2 at a shard's commit block of mesh_spin_65536 (2^19 LDT rows over
+    MESH_SHARDS shards: 2^17 rows of 379 and of 273 words, the (n, 2^17)
+    block the cols->rows exchange delivers, read column-major) and K1 at
+    a shard subtree's widest layer (2^16 pairs), each against its plain
+    version on the card (max_abs_err 0), then timed. Returns
+    {kernel: (max_abs_err, {shape: (ms, bound_ms)})}."""
+    from triton_vm_tpu_torch.crypto import tip5
+    from triton_vm_tpu_torch.ops import gf, tip5_cuda
+
+    rows = (1 << 19) // MESH_SHARDS
+    k2 = {}
+    for n in (379, 273):
+        block = gf.from_u64(random_field(rng, (n, rows)), "cuda").T
+        err = max_abs_err(tip5_cuda.sponge_absorb_rows(block),
+                          tip5_cuda.sponge_absorb_rows_plain(block))
+        if err:
+            raise AssertionError(f"K2 disagrees with its plain version at a "
+                                 f"shard's block 2^17 x {n}: {err}")
+        k2[f"2^17x{n}"] = (
+            time_ms(lambda: tip5_cuda.sponge_absorb_rows(block), 10),
+            bound(8 * rows * (n + 5),
+                  rows * ((n + tip5.RATE) // tip5.RATE))[0])
+        del block
+    layer = gf.from_u64(random_field(rng, (16, rows // 2)), "cuda")
+    err = max_abs_err(tip5_cuda.permutation(layer),
+                      tip5_cuda.permutation_plain(layer))
+    if err:
+        raise AssertionError(f"K1 disagrees with its plain version at a "
+                             f"shard subtree's layer 2^16: {err}")
+    k1 = {"2^16": (time_ms(lambda: tip5_cuda.permutation(layer), 20),
+                   bound(2 * 16 * 8 * (rows // 2), rows // 2)[0])}
+    log("mesh: K2 at a shard's commit block and K1 at a shard subtree's "
+        "widest layer equal their plain versions (max_abs_err 0); kernel / "
+        "bound ms: " + json.dumps({**k2, **k1}))
+    return {"tip5_sponge_rows": (0, k2), "tip5_permutation": (0, k1)}
+
+
+def drive_mesh(proofs):
+    """The mesh phase: TVM_MESH=MESH_SHARDS (restored afterwards, also when
+    the phase fails), then mesh_fib_1024 against the JAX package's digest
+    and mesh_spin_65536 against spin_65536's proof of this run, each
+    verified with a tampered word rejected; the six-step transform must
+    run in STIR, K1 and K2 must launch on every shard's card and as often
+    as `mesh_launch_counts` says."""
+    import os
+
+    import torch
+
+    from triton_vm_tpu_torch.models import example_programs as ex
+    from triton_vm_tpu_torch.ops import ntt_sharded
+    from triton_vm_tpu_torch.parallel import sharding
+
+    saved = os.environ.get("TVM_MESH")
+    os.environ["TVM_MESH"] = str(MESH_SHARDS)
+    try:
+        mesh = sharding.active_mesh("cuda")
+        cards = sorted({str(d) for d in mesh.devices})
+        log(f"mesh: TVM_MESH={MESH_SHARDS}, shards on "
+            f"{[str(d) for d in mesh.devices]}, torch.cuda.device_count() "
+            f"{torch.cuda.device_count()}")
+        program, iterations = ex.spin(16)
+        for label, prog, public_input, log2_height in (
+                ("mesh_fib_1024", ex.fibonacci(), [85], 10),
+                ("mesh_spin_65536", program, [iterations], 16)):
+            ntt_sharded.reset_launch_counts()
+            stark, proof, launches, _ = prove_and_verify(label, prog,
+                                                         public_input)
+            six_step = ntt_sharded.launches["ntt_sharded"]
+            by_card = launches["prove_by_device"]
+            missing = [c for c in cards
+                       if not all(by_card.get(c, {}).values())]
+            if missing:
+                raise AssertionError(f"{label}: K1 or K2 never launched on "
+                                     f"{missing}: {by_card}")
+            want = mesh_launch_counts(log2_height, MESH_SHARDS)
+            got = (launches["prove"]["tip5_permutation"],
+                   launches["prove"]["tip5_sponge_rows"])
+            if got != want:
+                raise AssertionError(f"{label}: K1/K2 launched {got} times, "
+                                     f"not {want}")
+            log(f"{label}: K1/K2 launches {got} as a {MESH_SHARDS}-shard "
+                f"prove makes them; six-step transforms {six_step}")
+            if label == "mesh_fib_1024":
+                check_digest(label, proof, JAX_FIB85_DIGEST)
+                continue
+            if not six_step:
+                raise AssertionError(f"{label}: STIR's tall transforms did "
+                                     "not go through ops/ntt_sharded.py")
+            w, single = proof.words, proofs["spin_65536"].words
+            if w != single:
+                raise AssertionError(f"{label}: the mesh proof differs from "
+                                     "spin_65536's")
+            log(f"{label}: proof equals spin_65536's word for word; prove "
+                f"{WALL[label][0]:.3f} s beside spin_65536's "
+                f"{WALL['spin_65536'][0]:.3f} s in this run "
+                f"({len(mesh.devices)} shards on {len(cards)} card(s))")
+            proofs[label] = proof
+    finally:
+        if saved is None:
+            os.environ.pop("TVM_MESH", None)
+        else:
+            os.environ["TVM_MESH"] = saved
+
+
 def drive_path(name, proofs):
     """One proving path of the main path, with every launch count set to
     0 just before it and read just after; every kernel must have been
@@ -663,11 +812,14 @@ def drive_path(name, proofs):
     from triton_vm_tpu_torch.ops import tip5_cuda
 
     tip5_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
     if name in RV_CELLS:
         drive_recursive_verifier(name, proofs)
     elif name == "fib_1024":
         _, proof, _, _ = prove_and_verify(name, ex.fibonacci(), [85])
         check_digest(name, proof, JAX_FIB85_DIGEST)
+    elif name == "mesh":
+        drive_mesh(proofs)
     elif name == "fib_1024_stir":
         _, proof, _, _ = prove_and_verify(name, ex.fibonacci(), [85],
                                           ldt_choice="stir")
@@ -702,6 +854,7 @@ def drive_path(name, proofs):
         proofs[name] = proof
     counts = dict(tip5_cuda.launches)
     log(f"{name} kernel launches, prove and verify: {json.dumps(counts)}")
+    log(f"{name} path: {time.perf_counter() - t0:.3f} s")
     for kernel, n in counts.items():
         if n <= 0:
             raise AssertionError(f"{kernel} was never launched on {name}")
@@ -1079,6 +1232,8 @@ def main(argv=None):
         ap.error(f"unknown phases: {sorted(phases - set(PHASES))}")
     if "spin_65536_jit" in phases and "spin_65536" not in phases:
         ap.error("spin_65536_jit is held against spin_65536: name both")
+    if "mesh" in phases:
+        phases.add("spin_65536")  # the mesh proof is held against its proof
 
     import torch
 
@@ -1098,8 +1253,8 @@ def main(argv=None):
     report = phase_build()
     rng = np.random.default_rng(2024)
     kernels = []
-    bound = Bound() if phases & {"kernels", "recursive_verifier_full"} \
-        else None
+    bound = (Bound() if phases & {"kernels", "mesh", "recursive_verifier_full"}
+             else None)
     if "kernels" in phases:
         kernels = [phase_k1(rng, bound), phase_k2(rng, bound)]
     if "recursive_verifier_full" in phases:
@@ -1112,6 +1267,13 @@ def main(argv=None):
                 k["per_prove_ms"].update(f["per_prove_ms"])
                 k["per_prove_bound_ms"].update(f["per_prove_bound_ms"])
         torch.cuda.empty_cache()
+    if "mesh" in phases:
+        mesh_checks = phase_mesh_kernels(rng, bound)
+        for k in kernels:
+            err, shapes = mesh_checks[k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], err)
+            k["mesh_shard_ms"] = {s: t for s, (t, _) in shapes.items()}
+            k["mesh_shard_bound_ms"] = {s: b for s, (_, b) in shapes.items()}
     launches, proofs = {}, {}
     # the host oracles of the witness phase's config 5 sections run in
     # two worker processes, from the end of the recursive_verifier path

@@ -201,3 +201,34 @@ def test_low_security_testable_program_on_the_card(cuda):
     assert tuple(tip5.hash_varlen([len(w) + 1, len(w)] + w)) == (
         5451660588470763885, 7307061866663976276, 14817866948123220096,
         49005092894082727, 15240332116246682258)
+
+
+@pytest.mark.parametrize("ldt", ["fri", "stir"])
+def test_mesh_proof_on_the_card_equals_cpu(cuda, monkeypatch, ldt):
+    """TVM_MESH=4 on the card (several shards share a card where fewer are
+    visible): the small proof of tests/test_torch_mesh_prover.py equals
+    the CPU mesh proof; with STIR, TVM_INTRA_NTT_MIN=64 sends its initial
+    iNTT through the six-step transform."""
+    import triton_vm_tpu_torch as tvm
+    from triton_vm_tpu_torch.ops import ntt_sharded
+
+    monkeypatch.setenv("TVM_MESH", "4")
+    monkeypatch.setenv("TVM_INTRA_NTT_MIN", "64")
+    program = tvm.triton_program(
+        "push 3 call cnt halt\n"
+        "cnt: dup 0 push 0 eq skiz return addi -1 recurse")
+    aet, output = tvm.VM.trace_execution(program, tvm.PublicInput([]))
+    claim = tvm.Claim.about_program(program).with_output(list(output))
+    proofs = {}
+    for dev in ("cpu", cuda):
+        stark = tvm.Stark(32, 2, ldt_choice=None if ldt == "fri" else ldt,
+                          device=dev)
+        tip5_cuda.reset_launch_counts()
+        ntt_sharded.reset_launch_counts()
+        proofs[str(dev)] = stark.prove(claim, aet, seed=bytes(range(32)))
+    assert proofs["cuda"].words == proofs["cpu"].words
+    assert all(n > 0 for n in tip5_cuda.launches.values())
+    assert set(tip5_cuda.launches_by_device) == {"cuda:0"} or \
+        torch.cuda.device_count() > 1
+    assert (ntt_sharded.launches["ntt_sharded"] > 0) == (ldt == "stir")
+    assert stark.verify(claim, proofs["cuda"])

@@ -32,7 +32,7 @@ import torch
 from ..crypto import merkle
 from ..fields import poly, xfe
 from ..fields.bfe import P
-from ..ops import gf, gfx, ntt, tip5_kernel
+from ..ops import gf, gfx, ntt, ntt_sharded, tip5_kernel
 from ..stark.arithmetic_domain import Domain
 from ..stark.proof_item import ProofItem
 from ..utils import profiler
@@ -191,7 +191,9 @@ class Stir:
 
         with profiler.device_span("STIR commit", "LDT", dev):
             commitment = _StirMerkleTreeDev(codeword, k)
-            coeffs = ntt.intt(codeword, domain.offset)
+            # tall transforms spread over an active mesh (TVM_MESH): the
+            # six-step transform of ops/ntt_sharded.py
+            coeffs = ntt_sharded.xfe_intt_auto(codeword, domain.offset)
         proof_stream.enqueue(ProofItem("MerkleRoot", commitment.root()))
         first_round_indices = None
 
@@ -200,8 +202,8 @@ class Stir:
             next_domain = self.next_round_domain(domain)
             with profiler.device_span("STIR commit", "LDT", dev):
                 folded = _fold_device(coeffs, k, folding_randomness)
-                folded_evals = ntt.ntt(_pad_to(folded, next_domain.length),
-                                       next_domain.offset)
+                folded_evals = ntt_sharded.xfe_ntt_auto(
+                    _pad_to(folded, next_domain.length), next_domain.offset)
                 folded_commitment = _StirMerkleTreeDev(folded_evals, k)
             proof_stream.enqueue(ProofItem("MerkleRoot",
                                            folded_commitment.root()))
@@ -249,7 +251,8 @@ class Stir:
                     [answer_poly, dc_coeffs], next_domain, dev)
                 next_vals = _quotient_next_vals(folded_evals, ans_evals,
                                                 z_evals, dc_evals)
-                coeffs = ntt.intt(next_vals, next_domain.offset)
+                coeffs = ntt_sharded.xfe_intt_auto(next_vals,
+                                                   next_domain.offset)
             domain = next_domain
             commitment = folded_commitment
             if first_round_indices is None:

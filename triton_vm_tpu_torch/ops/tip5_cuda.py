@@ -36,8 +36,10 @@ _NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("tip5_permutation_kernel", "tip5_sponge_rows_kernel")
 
 # Kernel launches since the last reset: one per launch, counted by the
-# wrapper right where it launches.
+# wrapper right where it launches, in all and by the card it launched on
+# (a prover sharded over a mesh launches on every shard's card).
 launches = {"tip5_permutation": 0, "tip5_sponge_rows": 0}
+launches_by_device: dict = {}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -46,6 +48,14 @@ _LIB = None
 def reset_launch_counts():
     for k in launches:
         launches[k] = 0
+    launches_by_device.clear()
+
+
+def _count(kernel, device):
+    launches[kernel] += 1
+    per = launches_by_device.setdefault(str(device), dict.fromkeys(launches,
+                                                                   0))
+    per[kernel] += 1
 
 
 def _nvcc() -> str:
@@ -171,7 +181,7 @@ def permutation(state):
         rc = _lib().tip5_permutation_launch(state.data_ptr(), out.data_ptr(),
                                             batch, stream)
         _raise_if(rc, "tip5_permutation")
-        launches["tip5_permutation"] += 1
+        _count("tip5_permutation", state.device)
     return out
 
 
@@ -200,7 +210,7 @@ def sponge_absorb_rows(rows):
                                             row_stride, col_stride,
                                             out.data_ptr(), stream)
         _raise_if(rc, "tip5_sponge_rows")
-        launches["tip5_sponge_rows"] += 1
+        _count("tip5_sponge_rows", rows.device)
     return out
 
 

@@ -13,7 +13,11 @@ DEEP combination and the low-degree test (FRI or STIR) run on the
 prover's device (a CUDA card unless the caller asks for the CPU); the
 main table's fill from the execution trace, Fiat-Shamir and randomness
 are on the host. The host <-> device boundary is numpy uint64 <-> int64
-tensors with the same bit patterns (ops/gf.py).
+tensors with the same bit patterns (ops/gf.py). With TVM_MESH=n the
+commit stage, the row hashing and Merkle subtrees, the quotient tapes,
+the out-of-domain rows, the weighted column sum and STIR's tall
+transforms are sharded over n shards (parallel/mesh.py,
+ops/ntt_sharded.py); the proof is the same word for word.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ from ..fields.bfe import P
 from ..ldt.fri import Fri, FriParameters
 from ..ldt.stir import Stir, StirParameters
 from ..ops import gf, gfx, kernels, ntt, tip5_kernel
+from ..parallel import mesh as pmesh
+from ..parallel import sharding
 from ..tables import extend_device
 from ..tables import master as mt
 from ..utils import profiler as _profiler
@@ -55,11 +61,13 @@ def _trace(msg, category=None, device=None):
     opens a new one in the global profiler; also prints under
     TVM_TRACE=1, on a card with the peak device memory so far. Call with
     msg=None to close the final stage. On a CUDA device the stream is
-    synchronised first, so a span holds the device work its stage
+    synchronised first (every visible card's: a prover sharded over a
+    mesh works on several), so a span holds the device work its stage
     enqueued."""
     global _CURRENT_STAGE
     if device is not None and device.type == "cuda":
-        torch.cuda.synchronize(device)
+        for card in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(card)
     if _CURRENT_STAGE is not None:
         _profiler.exit(_CURRENT_STAGE)
     _CURRENT_STAGE = msg
@@ -313,11 +321,17 @@ class Prover:
         Q = quot_dom.length
         E = max(L, Q)  # evaluation domain length
         eval_dom = ldt_dom if L >= Q else quot_dom
+        # TVM_MESH shards the commit stage (columns), the row hashing and
+        # the quotients (rows) over a mesh (parallel/mesh.py); the rest
+        # runs on the lead device, the Stark's own.
+        mesh = sharding.active_mesh(dev)
         # Cache-or-JIT (config.rs:24-94): the cached path keeps the
         # committed codewords on the evaluation domain; the JIT path keeps
         # only their polynomials' coefficients and evaluates them coset by
-        # coset (stark/jit_lde.py).
-        use_jit = config.cache_lde_trace(L, dev) is config.CacheDecision.JIT
+        # coset (stark/jit_lde.py). A mesh implies the cached path, as in
+        # the JAX package.
+        use_jit = (mesh is None and config.cache_lde_trace(L, dev)
+                   is config.CacheDecision.JIT)
 
         # ------------------------------------------------------ main table
         _trace("fill main", "witness", dev)
@@ -334,6 +348,12 @@ class Prover:
                                                      L)
             _trace("main merkle", "hash", dev)
             main_tree = _merkle_tree(main_digests)
+        elif mesh is not None:
+            main_coeffs, main_lde = pmesh.sharded_commit(
+                mesh, main, main_rand, trace_dom, eval_dom)   # (NM, .)
+            _trace("main merkle", "hash", dev)
+            main_tree = _mesh_tree(mesh, main_lde.map(
+                lambda p: p[:, ::E // L]), L)
         else:
             main_coeffs, main_lde = _commit_bfe(
                 main, main_rand, trace_dom, eval_dom)         # (NM, E)
@@ -364,6 +384,14 @@ class Prover:
                                                     L)
             _trace("aux merkle", "hash", dev)
             aux_tree = _merkle_tree(aux_digests)
+        elif mesh is not None:
+            # sharded by XFE column: a shard holds all 3 components
+            aux_coeffs, aux_store = pmesh.sharded_commit(
+                mesh, aux, aux_rand, trace_dom, eval_dom)     # (NA, 3, .)
+            del aux
+            _trace("aux merkle", "hash", dev)
+            aux_tree = _mesh_tree(mesh, aux_store.unpadded().map(
+                lambda p: p.reshape(-1, E)[:, ::E // L], axis=0), L)
         else:
             aux_coeffs, aux_store = _commit_bfe(
                 aux, aux_rand, trace_dom, eval_dom)           # (NA, 3, E)
@@ -385,6 +413,12 @@ class Prover:
             quotient = jit_lde.quotient_codeword_jit(
                 main_coeffs, aux_coeffs, trace_dom, quot_dom, challenges,
                 quot_weights)                                 # XFE (3, Q)
+        elif mesh is not None:
+            stride = E // Q
+            quotient = pmesh.sharded_quotients(
+                mesh, main_lde.map(lambda p: p[:, ::stride]),
+                aux_store.map(lambda p: p[..., ::stride]), trace_dom,
+                quot_dom, challenges, quot_weights)           # XFE (3, Q)
         else:
             stride = E // Q
             quotient = _all_quotients_combined_device(
@@ -418,8 +452,13 @@ class Prover:
 
         # both paths keep the committed polynomials' coefficients: the OOD
         # rows and the weighted main+aux codeword are computed from them
-        aux_polys = aux_coeffs.permute(1, 0, 2)         # XFE (3, NA, n)
-        m1, a1, m2, a2, s1, s2 = kernels.ood_stage_fn(
+        ood_fn = kernels.ood_stage_fn
+        if mesh is None:
+            aux_polys = aux_coeffs.permute(1, 0, 2)     # XFE (3, NA, n)
+        else:
+            ood_fn = functools.partial(pmesh.sharded_ood_stage, mesh)
+            aux_polys = aux_coeffs                      # (NA, 3, n), sharded
+        m1, a1, m2, a2, s1, s2 = ood_fn(
             main_coeffs, aux_polys, segs, point(alpha), point(omega_alpha),
             point(alpha_pow_k), point(zeta_alpha_pow_k),
             gf.powers(ldt_dom.generator, L, ldt_dom.offset, dev))
@@ -460,7 +499,9 @@ class Prover:
 
         # the weighted main+aux codeword on the short domain: the weighted
         # sum of the coefficients, evaluated there
-        cw_ma = ntt.ntt(kernels.weighted_column_sum(
+        sum_fn = (kernels.weighted_column_sum if mesh is None else
+                  functools.partial(pmesh.sharded_weighted_column_sum, mesh))
+        cw_ma = ntt.ntt(sum_fn(
             main_coeffs, aux_polys, rows(weights["main"]),
             rows(weights["aux"])), short_dom.offset, S)
         combination = kernels.deep_combination_fn(
@@ -490,6 +531,13 @@ class Prover:
                                        revealed_indices)
             a3 = jit_lde.reveal_rows(aux_coeffs, eval_dom, L,
                                      revealed_indices).transpose(1, 0, 2)
+            qsel = gf.to_u64(segs.index_select(2, torch.as_tensor(
+                np.asarray(revealed_indices, np.int64), device=dev)))
+        elif mesh is not None:
+            rows_e = np.asarray(revealed_indices, np.int64) * (E // L)
+            msel = gf.to_u64(pmesh.gather_rows(main_lde, 1, rows_e, dev))
+            a3 = gf.to_u64(pmesh.gather_rows(aux_store, 2, rows_e, dev)
+                           .permute(1, 0, 2))
             qsel = gf.to_u64(segs.index_select(2, torch.as_tensor(
                 np.asarray(revealed_indices, np.int64), device=dev)))
         else:
@@ -827,6 +875,14 @@ def _merkle_tree(digests):
                                        digests.shape[1])
 
 
+def _mesh_tree(mesh, cols, num_leafs):
+    """The Merkle tree over the rows of a column-sharded table (nc, L):
+    the cols->rows exchange, K2 on each shard's block of rows, K1 on each
+    shard's subtree, the top layers on the lead device."""
+    return merkle.MerkleTree.from_flat(pmesh.sharded_merkle_layers(
+        mesh, pmesh.sharded_row_hash(mesh, cols)), num_leafs)
+
+
 def _commit_tree(rows, num_leafs):
     """Row digests (the K2 sponge over the strided row view) and the
     Merkle tree over them (K1 per layer)."""
@@ -908,18 +964,28 @@ def _quotient_inputs(challenges, quot_weights, dev):
 
 def _quotients_on_domain(main, aux, dom, shift, trace_dom, ch, ws):
     """The combined quotient at every point of `dom` from the committed
-    values there (main int64 (NM, N), aux XFE (3, NA, N)), in chunks of
-    _QUOTIENT_CHUNK_ROWS rows; a row's next row lies `shift` rows ahead,
-    cyclically. Returns XFE (3, N)."""
+    values there (main int64 (NM, N), aux XFE (3, NA, N)); a row's next
+    row lies `shift` rows ahead, cyclically. Returns XFE (3, N)."""
+    return _quotients_on_rows(
+        main, aux, gf.powers(dom.generator, dom.length, dom.offset,
+                             main.device), shift, trace_dom, ch, ws)
+
+
+def _quotients_on_rows(main, aux, xs, shift, trace_dom, ch, ws):
+    """The combined quotient at the N points xs from the committed values
+    in the first N columns of main int64 (NM, M) and aux XFE (3, NA, M),
+    in chunks of _QUOTIENT_CHUNK_ROWS rows; row i's next row is row
+    (i + shift) % M: the whole domain cyclically where M = N, a shard's
+    block followed by its halo where M = N + shift (parallel/mesh.py).
+    Returns XFE (3, N)."""
     dev = main.device
-    N = dom.length
-    xs = gf.powers(dom.generator, N, dom.offset, dev)
+    N, M = xs.shape[0], main.shape[1]
     gen_inv = bfe.inv(trace_dom.generator)
     C_ = min(N, _QUOTIENT_CHUNK_ROWS)
     out = torch.empty((3, N), dtype=torch.int64, device=dev)
     for s in range(0, N, C_):
         idx = torch.arange(s, s + C_, device=dev)
-        nidx = (idx + shift) % N
+        nidx = (idx + shift) % M
         out[:, s:s + C_] = _quotient_chunk_fn(
             main.index_select(1, idx), aux.index_select(2, idx),
             main.index_select(1, nidx), aux.index_select(2, nidx),
