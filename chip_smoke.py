@@ -66,18 +66,29 @@ non-zero and prints no result line:
    verified, a tampered word rejected, with the stage spans, the RAM
    table's Bezout step as `fill main/RAM Bezout`, the peak device memory
    and the K1/K2 launches of the prove;
-11. [spin_1048576] the main path at padded height 2^20 (`spin(20)`, LDT
+11. [factorial_4096], [hash_chain], [merkle_auth] bench.py's configs of
+   those names as models/baseline.py builds them: factorial input 500
+   (padded height 2^13; bench.py's name notwithstanding), BASELINE config
+   3, the Tip5 hash chain, input 200 (2^14), and config 4, the Merkle
+   authentication path of a height-10 tree with its sibling digests
+   divined (2^10); each proven with Stark() (FRI) and seed
+   bytes(range(32)), its digest held against the JAX package's, verified,
+   a tampered word rejected, K1/K2 launches counted as for spin;
+12. [hash_chain_65536] config 3 at padded height 2^16 (input 4000: 24,036
+   hash and 64,260 cascade rows), STIR and the cached LDE asserted: prove,
+   verify, tamper check, stage spans, peak, K1/K2 launches;
+13. [spin_1048576] the main path at padded height 2^20 (`spin(20)`, LDT
    domain 2^23), where the cache decision chooses JIT on an 80 GB card
    (asserted from the prove's JIT spans): prove, verify, tamper check,
    with the stage spans, the JIT spans within them and the peak device
    memory;
-12. [witness] the device-resident witness (`main_witness_dev`,
-   `aux_witness_dev`) on the card for `u32_mix`, `spin(12)` and config
-   5's `fs_replay` and `queries` sections (padded height 2^16 each;
-   their host oracles run in two worker processes from the end of the
-   recursive_verifier path on, beside the paths that follow), word for
-   word against the host oracle of tables/master.py, with the device and
-   host times.
+14. [witness] the device-resident witness (`main_witness_dev`,
+   `aux_witness_dev`) on the card for `u32_mix`, `spin(12)`, config 5's
+   `fs_replay` and `queries` sections and hash_chain_65536's trace
+   (padded height 2^16 each; their host oracles run in three worker
+   processes from the end of the recursive_verifier and hash_chain_65536
+   paths on, beside the paths that follow), word for word against the
+   host oracle of tables/master.py, with the device and host times.
 
 [spin_262144] and [spin_524288], run only when `--phases` names them,
 prove `spin(18)` and `spin(19)` (padded heights 2^18 and 2^19, LDT
@@ -88,23 +99,31 @@ in the VM, a full verification: padded height 2^21, JIT asserted; before
 it, K1 at B = 2^23 and K2 at its shapes (2^22 rows of 379 and 273
 column-major, 2^24 rows of 15, 2^22 rows of 12) are held against their
 plain versions, and both kernels' per-prove totals are timed.
+[hash_chain_1048576], only when named (in a call of its own, after
+`kernels`, which holds its shapes, spin_1048576's), is config 3 at padded
+height 2^20 (input 40000: 240,036 hash rows, a full cascade table of
+65,536 rows), JIT asserted: prove, verify, tamper check, stage spans
+with the JIT spans, peak.
 
-The kernels phase also holds K1 at B = 2^20 and 2^22, K2 at 2^20 rows of
-379, 273 and 15 (column-major, the recursive_verifier prove's commits),
-2^21 rows of 379 and 273 (column-major, a JIT coset as the commit reads
-it), 2^23 rows of 15 and 2^21 rows of 12 (the widest STIR tree's leaves)
-against their plain versions, and sums K1 and K2 per recursive_verifier
-and per spin_1048576 prove. `torch.cuda.empty_cache()` runs before each
-proving path, so one path's cached blocks move neither the next one's
-cache decision nor its peak. The launch counts of both kernels are set to
-0 just before each proving path (phases 4-11) and read just after it;
-both must be above 0 on every path, and every spin and config 5 prove
-must launch K1 once per Merkle layer and K2 once per committed table
-(once per hashed coset of the main and aux tables on the JIT path) and
-STIR tree, as the per-prove totals assume. The line before the last is a
-JSON object with each kernel's numbers (launches summed over every path,
-config 5's inner proof and build included); the last line is the device
-record. Needs one card, no network; imports nothing of JAX.
+The kernels phase also holds K1 at B = 2^20 and 2^22, K2 at 2^13, 2^16
+and 2^17 rows of 379, 273 and 15 (column-major, the commits of
+merkle_auth, factorial_4096 and hash_chain), at 2^20 rows of 379, 273
+and 15 (column-major, the recursive_verifier prove's commits), 2^21 rows
+of 379 and 273 (column-major, a JIT coset as the commit reads it), 2^23
+rows of 15 and 2^21 rows of 12 (the widest STIR tree's leaves) against
+their plain versions, and sums K1 and K2 per prove of every path but the
+mesh's (`PER_PROVE_HEIGHTS`). `torch.cuda.empty_cache()` runs before
+each proving path, so one path's cached blocks move neither the next
+one's cache decision nor its peak. The launch counts of both kernels are
+set to 0 just before each proving path (phases 4-13) and read just after
+it; both must be above 0 on every path, and every prove but fib_1024's,
+fib_1024_stir's and the mesh's (which counts its own) must launch K1
+once per Merkle layer and K2 once per committed table (once per hashed
+coset of the main and aux tables on the JIT path) and STIR tree, as the
+per-prove totals assume. The line before the last is a JSON object with
+each kernel's numbers (launches summed over every path, config 5's inner
+proof and build included); the last line is the device record. Needs one
+card, no network; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -147,6 +166,45 @@ JAX_FIB85_STIR_DIGEST = (2557357267674768290, 7933928826770184855,
 JAX_FIB7_DIGEST = (16776481165773445315, 11632406580342972184,
                    4551248486225805797, 9432930646896196063,
                    16369719787940908687)
+# The same for bench.py's factorial_4096 and BASELINE configs 3 and 4
+# (models/baseline.config), with Stark() and the same seed, computed with
+# TVM_DEVICE_QUOTIENT=1 (the JAX package's default quotient path on the
+# CPU holds every node of the constraint graph as Python ints over the
+# quotient domain, tens of GB of host memory at 2^13; =1 runs its
+# compiled tapes in chunks of 2^16 rows, and merkle_auth's digest is the
+# same on both paths):
+#   JAX_PLATFORMS=cpu TVM_DEVICE_QUOTIENT=1 python -c "
+#   from triton_vm_tpu.models import example_programs as ex
+#   from triton_vm_tpu.stark.proof_stream import Claim
+#   from triton_vm_tpu.stark.prover import Stark
+#   from triton_vm_tpu.vm.machine import VM, PublicInput
+#   from triton_vm_tpu.crypto import tip5
+#   p, i, nd = ex.factorial(), [500], None
+#   aet, out = VM.trace_execution(p, PublicInput(i), nd)
+#   c = Claim.about_program(p).with_input(i).with_output(out)
+#   w = Stark().prove(c, aet, seed=bytes(range(32))).words
+#   print(tip5.hash_varlen([len(w) + 1, len(w)] + w))"
+# factorial input 500, padded height 2^13:
+JAX_FACTORIAL500_DIGEST = (4846685011731684962, 15020475707371369917,
+                           313231693343479167, 5628249499949679645,
+                           12137424526558821888)
+# hash_chain input 200, padded height 2^14: the command above with
+# p, i, nd = ex.hash_chain(), [200], None
+JAX_HASH_CHAIN200_DIGEST = (13857134945194945349, 8145041707390557774,
+                            3678209363899394061, 2905766062769593517,
+                            10266487826333771854)
+# merkle_auth, padded height 2^10: the command above, run from the repo
+# root, with p, i, nd = tests.test_torch_baseline_configs.jax_merkle_auth(
+# 10): bench.py's _merkle_auth_fixture(height=10) with its leaves drawn as
+# uint64 (numpy refuses the fixture's int64 draw below P)
+JAX_MERKLE_AUTH10_DIGEST = (12152112950504017383, 1379961327953900138,
+                            949879719169528230, 3516083558584882264,
+                            17984510444708907256)
+# bench.py's configs proven on FRI: the JAX digest and log2 of the padded
+# height
+BASELINE_CELLS = {"factorial_4096": (JAX_FACTORIAL500_DIGEST, 13),
+                  "hash_chain": (JAX_HASH_CHAIN200_DIGEST, 14),
+                  "merkle_auth": (JAX_MERKLE_AUTH10_DIGEST, 10)}
 # Config 5's verifier-core program (models/recursive_verifier.build on
 # that proof): revealed indices checked in-VM, the table heights of the
 # JAX package's trace of its `combined` section, and log2 of the padded
@@ -164,13 +222,28 @@ RV_CELLS = {
         jump_stack=795143), 21),
 }
 PATHS = ("fib_1024", "spin_32768", "fib_1024_stir", "spin_65536",
-         "spin_65536_jit", "mesh", "recursive_verifier", "spin_1048576",
-         "spin_262144", "spin_524288", "recursive_verifier_full")
+         "spin_65536_jit", "mesh", "recursive_verifier", "factorial_4096",
+         "hash_chain", "merkle_auth", "hash_chain_65536", "spin_1048576",
+         "spin_262144", "spin_524288", "recursive_verifier_full",
+         "hash_chain_1048576")
 PHASES = ("kernels",) + PATHS + ("witness",)
-OPTIONAL_PHASES = ("spin_262144", "spin_524288", "recursive_verifier_full")
+OPTIONAL_PHASES = ("spin_262144", "spin_524288", "recursive_verifier_full",
+                   "hash_chain_1048576")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPTIONAL_PHASES)
 SPIN_HEIGHTS = {"spin_32768": 15, "spin_65536": 16, "spin_65536_jit": 16,
                 "spin_1048576": 20, "spin_262144": 18, "spin_524288": 19}
+# BASELINE config 3 at the prover's heights: hash_chain input 4000 and
+# 40000 (log2 of the padded height)
+HASH_CHAIN_CELLS = {"hash_chain_65536": (4000, 16),
+                    "hash_chain_1048576": (40000, 20)}
+# the paths whose K1 and K2 totals per prove the kernels phase sums, with
+# log2 of their padded heights (JIT from 2^20); per_prove_ms in the
+# kernels line
+PER_PROVE_HEIGHTS = (("spin_32768", 15), ("spin_65536", 16),
+                     ("recursive_verifier", 17), ("spin_1048576", 20),
+                     ("fib_1024", 10), ("merkle_auth", 10),
+                     ("factorial_4096", 13), ("hash_chain", 14),
+                     ("hash_chain_65536", 16), ("hash_chain_1048576", 20))
 MESH_SHARDS = 4  # TVM_MESH of the mesh phase
 # prove and verify wall-clock (s) of each path's proof, by label
 WALL = {}
@@ -391,9 +464,7 @@ def phase_k1(rng, bound):
                                20 if k > 12 else 200),
                        bound(2 * 16 * 8 * (1 << k), 1 << k)[0])
     per_prove = {}
-    for label, log2_height in (("spin_32768", 15), ("spin_65536", 16),
-                               ("recursive_verifier", 17),
-                               ("spin_1048576", 20)):
+    for label, log2_height in PER_PROVE_HEIGHTS:
         batches = k1_batches_per_prove(log2_height)
         per_prove[label] = (sum(by_batch[k][0] for k in batches),
                             sum(by_batch[k][1] for k in batches))
@@ -472,6 +543,7 @@ def phase_k2(rng, bound):
     # 2^13), every launch's own shape
     del col_major, timed
     per_prove["spin_65536"] = []
+    by_shape = {}
     for n in (379, 273, 15):
         rows = gf.from_u64(random_field(rng, (n, 2 * b)), "cuda").T
         errs.append(max_abs_err(tip5_cuda.sponge_absorb_rows(rows),
@@ -479,7 +551,8 @@ def phase_k2(rng, bound):
         if errs[-1]:
             raise AssertionError(f"K2 disagrees with its plain version at "
                                  f"2^19 x {n}: {errs[-1]}")
-        per_prove["spin_65536"].append(timed_bound(rows, 3 if n > 100 else 20))
+        by_shape[2 * b, n] = timed_bound(rows, 3 if n > 100 else 20)
+        per_prove["spin_65536"].append(by_shape[2 * b, n])
         del rows
     from triton_vm_tpu_torch import Stark
 
@@ -490,7 +563,6 @@ def phase_k2(rng, bound):
     # aux tables, 2^21 rows of 379 and 273 read column-major in place, and
     # the quotient table's 2^23 rows of 15; each held against the plain
     # version; then the leaf rows of each STIR tree (2^21 down to 2^15)
-    by_shape = {}
     for rb, n in ((1 << 20, 379), (1 << 20, 273), (1 << 20, 15),
                   (1 << 21, 379), (1 << 21, 273), (1 << 23, 15)):
         rows = gf.from_u64(random_field(rng, (n, rb)), "cuda").T
@@ -513,9 +585,24 @@ def phase_k2(rng, bound):
     if errs[-1]:
         raise AssertionError(f"K2 disagrees with its plain version at "
                              f"2^21 x 12: {errs[-1]}")
-    for label, log2_height, jit in (("recursive_verifier", 17, False),
-                                    ("spin_1048576", 20, True)):
-        launches = k2_launches_per_prove(log2_height, jit)
+    # bench.py's configs on FRI: the three tables of merkle_auth (2^13 LDT
+    # rows), factorial_4096 (2^16) and hash_chain (2^17), column-major, each
+    # held against the plain version
+    for rb in (1 << 13, 1 << 16, 1 << 17):
+        for n in (379, 273, 15):
+            rows = gf.from_u64(random_field(rng, (n, rb)), "cuda").T
+            errs.append(max_abs_err(tip5_cuda.sponge_absorb_rows(rows),
+                                    tip5_cuda.sponge_absorb_rows_plain(rows)))
+            if errs[-1]:
+                raise AssertionError(f"K2 disagrees with its plain version "
+                                     f"at 2^{rb.bit_length() - 1} x {n}: "
+                                     f"{errs[-1]}")
+            by_shape[rb, n] = timed_bound(rows, 5 if n > 100 else 40)
+            del rows
+    for label, log2_height in PER_PROVE_HEIGHTS:
+        if label in per_prove:
+            continue
+        launches = k2_launches_per_prove(log2_height, log2_height >= 20)
         for rb, n in launches:
             if (rb, n) not in by_shape:
                 assert n == 12
@@ -528,7 +615,7 @@ def phase_k2(rng, bound):
     totals = {label: (sum(t for t, _, _ in v), sum(bms for _, bms, _ in v))
               for label, v in per_prove.items()}
     err = max(errs)
-    log(f"K2 ok (max_abs_err 0, also at 2^19 x 379, 273 and 15, 2^20 x "
+    log(f"K2 ok (max_abs_err 0, also at 2^13, 2^16, 2^17, 2^19 and 2^20 x "
         f"379, 273 and 15, 2^21 x 379, 273 and 12, 2^23 x 15); 2^18 x "
         f"379: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_by}); 2^17 x 12: kernel "
@@ -800,14 +887,39 @@ def drive_mesh(proofs):
             os.environ["TVM_MESH"] = saved
 
 
+def prove_at_height(name, program, public_input, log2_height,
+                    non_determinism=None, forced_jit=False):
+    """prove_and_verify, then the LDE path asserted (JIT where forced and
+    from padded height 2^20, as the cache decision takes it on an 80 GB
+    card; cached below) and `check_proof`. Returns the proof and the
+    prove's spans within stages."""
+    from triton_vm_tpu_torch import config
+
+    if forced_jit:
+        config.overwrite_lde_trace_caching_to(config.CacheDecision.JIT)
+    try:
+        stark, proof, launches, nested = prove_and_verify(
+            name, program, public_input, non_determinism=non_determinism)
+    finally:
+        config.overwrite_lde_trace_caching_to(None)
+    # the JIT path opens its coset spans within the prover's stages
+    jit = any(span.endswith("/JIT coset NTT") for span in nested)
+    log(f"{name}: cache decision {'JIT' if jit else 'CACHE'}")
+    if jit != (forced_jit or log2_height >= 20):
+        raise AssertionError(f"{name}: the prover took the "
+                             f"{'JIT' if jit else 'cached'} path")
+    check_proof(name, log2_height, stark, proof, launches, jit)
+    return proof, nested
+
+
 def drive_path(name, proofs):
     """One proving path of the main path, with every launch count set to
     0 just before it and read just after; every kernel must have been
     launched. `proofs` holds the proofs of this run by path name
     (spin_65536_jit is held against spin_65536's) and config 5's built
     verifier core (the witness phase reuses it). Returns the counts."""
-    from triton_vm_tpu_torch import config
     from triton_vm_tpu_torch.crypto import tip5
+    from triton_vm_tpu_torch.models import baseline
     from triton_vm_tpu_torch.models import example_programs as ex
     from triton_vm_tpu_torch.ops import tip5_cuda
 
@@ -824,24 +936,22 @@ def drive_path(name, proofs):
         _, proof, _, _ = prove_and_verify(name, ex.fibonacci(), [85],
                                           ldt_choice="stir")
         check_digest(name, proof, JAX_FIB85_STIR_DIGEST)
+    elif name in BASELINE_CELLS:
+        digest, log2_height = BASELINE_CELLS[name]
+        program, public_input, non_determinism = baseline.config(name)
+        proofs[name], _ = prove_at_height(name, program, public_input,
+                                          log2_height, non_determinism)
+        check_digest(name, proofs[name], digest)
+    elif name in HASH_CHAIN_CELLS:
+        chain, log2_height = HASH_CHAIN_CELLS[name]
+        proofs[name], _ = prove_at_height(name, ex.hash_chain(), [chain],
+                                          log2_height)
     else:
         log2_height = SPIN_HEIGHTS[name]
         program, iterations = ex.spin(log2_height)
         forced = name == "spin_65536_jit"
-        if forced:
-            config.overwrite_lde_trace_caching_to(config.CacheDecision.JIT)
-        try:
-            stark, proof, launches, nested = prove_and_verify(
-                name, program, [iterations])
-        finally:
-            config.overwrite_lde_trace_caching_to(None)
-        # the JIT path opens its coset spans within the prover's stages
-        jit = any(span.endswith("/JIT coset NTT") for span in nested)
-        log(f"{name}: cache decision {'JIT' if jit else 'CACHE'}")
-        if jit != (forced or name == "spin_1048576"):
-            raise AssertionError(f"{name}: the prover took the "
-                                 f"{'JIT' if jit else 'cached'} path")
-        check_proof(name, log2_height, stark, proof, launches, jit)
+        proof, _ = prove_at_height(name, program, [iterations],
+                                   log2_height, forced_jit=forced)
         if forced:
             w, want = proof.words, proofs["spin_65536"].words
             digests = [tuple(tip5.hash_varlen([len(x) + 1, len(x)] + x))
@@ -863,21 +973,22 @@ def drive_path(name, proofs):
 
 def config5(num_queries):
     """BASELINE config 5 as the JAX bench builds it (bench.py:107-121),
-    with the port: fibonacci input 7 proven with Stark() and seed SEED on
-    the card (its digest held against the JAX package's), then
-    `recursive_verifier.build` on that proof (the port's verifier on the
-    card fills the collector) for `num_queries` revealed indices."""
+    with the port (models/baseline.py): fibonacci input 7 proven with
+    Stark() and seed SEED on the card (its digest held against the JAX
+    package's), then `recursive_verifier.build` on that proof (the port's
+    verifier on the card fills the collector) for `num_queries` revealed
+    indices."""
     import triton_vm_tpu_torch as tvm
-    from triton_vm_tpu_torch.models import example_programs as ex
-    from triton_vm_tpu_torch.models import recursive_verifier as rv
+    from triton_vm_tpu_torch.models import baseline
 
+    stark = tvm.Stark(device="cuda")
     t0 = time.perf_counter()
-    stark, claim, proof = tvm.prove_program(ex.fibonacci(), [7], seed=SEED,
-                                            device="cuda")
+    claim, proof = baseline.recursive_verifier_inner(stark)
     inner_s = time.perf_counter() - t0
     check_digest("config 5 inner fib(7)", proof, JAX_FIB7_DIGEST)
     t0 = time.perf_counter()
-    built = rv.build(claim, proof, stark, num_queries=num_queries)
+    built = baseline.recursive_verifier_fixture(
+        stark, num_queries=num_queries, inner=(claim, proof))
     log(f"config 5: inner proof padded height {proof.padded_height()}, "
         f"{len(proof.words)} words, prove {inner_s:.3f} s; build of the "
         f"verifier core for {num_queries} revealed indices "
@@ -942,14 +1053,8 @@ def drive_recursive_verifier(name, proofs):
     else:
         raise AssertionError(f"{name}: the verifier core accepted a "
                              "tampered revealed row")
-    stark, proof, launches, nested = prove_and_verify(
-        name, built.programs["combined"], [], non_determinism=_divined(built))
-    jit = any(span.endswith("/JIT coset NTT") for span in nested)
-    log(f"{name}: cache decision {'JIT' if jit else 'CACHE'}")
-    if jit != (name == "recursive_verifier_full"):
-        raise AssertionError(f"{name}: the prover took the "
-                             f"{'JIT' if jit else 'cached'} path")
-    check_proof(name, log2_height, stark, proof, launches, jit)
+    proof, nested = prove_at_height(name, built.programs["combined"], [],
+                                    log2_height, _divined(built))
     if "fill main/RAM Bezout" not in nested:
         raise AssertionError(f"{name}: no RAM Bezout span within fill main")
     proofs[name] = proof
@@ -1089,7 +1194,8 @@ def _column_digests(main, aux):
              for c in range(aux.shape[1])])
 
 
-def _host_witness_of_trace(program, non_determinism, challenges, randomizer):
+def _host_witness_of_trace(program, public_input, non_determinism,
+                           challenges, randomizer):
     """In a worker process: trace `program`, fill its main table (the
     Bezout step on the CPU) and run the host oracle; returns the column
     digests, the padded height and the seconds."""
@@ -1100,7 +1206,8 @@ def _host_witness_of_trace(program, non_determinism, challenges, randomizer):
     from triton_vm_tpu_torch.vm.machine import VM, PublicInput
 
     t0 = time.perf_counter()
-    aet, _ = VM.trace_execution(program, PublicInput([]), non_determinism)
+    aet, _ = VM.trace_execution(program, PublicInput(public_input),
+                                non_determinism)
     h = aet.padded_height()
     main_air = mt.fill_main_table(aet, padded_height=h, device="cpu")
     digests = _column_digests(*_host_witness(main_air, challenges,
@@ -1120,30 +1227,47 @@ def _challenges(rng, program, public_input, output):
                       claim)
 
 
-def submit_config5_witness(pool, built):
-    """Trace config 5's fs_replay and queries sections (sponge_absorb_mem,
-    sponge_squeeze, merkle_step, the extension-field instructions and RAM
-    pointers from 2^40 to 2^50; padded height 2^16 each), draw their
-    challenges and randomizer columns, and submit their host oracles to
-    the worker processes of `pool`, which run while the card proves the
-    paths that follow. Returns {section: (aet, challenges, randomizer,
-    future)}."""
-    import numpy as np
-
+def submit_witness(pool, rng, program, public_input, non_determinism=None):
+    """Trace `program`, draw its challenges and randomizer column, and
+    submit its host oracle to a worker process of `pool`, which runs while
+    the card proves the paths that follow. Returns (aet, challenges,
+    randomizer, future)."""
     import triton_vm_tpu_torch as tvm
 
+    aet, output = tvm.VM.trace_execution(
+        program, tvm.PublicInput(public_input), non_determinism)
+    challenges = _challenges(rng, program, public_input, output)
+    randomizer = random_field(rng, (aet.padded_height(), 3))
+    return aet, challenges, randomizer, pool.submit(
+        _host_witness_of_trace, program, public_input, non_determinism,
+        challenges, randomizer)
+
+
+def submit_config5_witness(pool, built):
+    """Config 5's fs_replay and queries sections (sponge_absorb_mem,
+    sponge_squeeze, merkle_step, the extension-field instructions and RAM
+    pointers from 2^40 to 2^50; padded height 2^16 each) for the witness
+    phase, their host oracles submitted to `pool`. Returns {label: (aet,
+    challenges, randomizer, future)}."""
+    import numpy as np
+
     rng = np.random.default_rng(18)
-    pending = {}
-    for section in ("fs_replay", "queries"):
-        program = built.programs[section]
-        aet, output = tvm.VM.trace_execution(program, tvm.PublicInput([]),
-                                             _divined(built))
-        challenges = _challenges(rng, program, [], output)
-        randomizer = random_field(rng, (aet.padded_height(), 3))
-        pending[section] = (aet, challenges, randomizer, pool.submit(
-            _host_witness_of_trace, program, _divined(built), challenges,
-            randomizer))
-    return pending
+    return {f"config 5 {section}": submit_witness(
+        pool, rng, built.programs[section], [], _divined(built))
+        for section in ("fs_replay", "queries")}
+
+
+def submit_hash_chain_witness(pool):
+    """hash_chain_65536's trace (hash_chain input 4000: 24,036 hash and
+    64,260 cascade rows, padded height 2^16) for the witness phase, its
+    host oracle submitted to `pool`."""
+    import numpy as np
+
+    from triton_vm_tpu_torch.models import example_programs as ex
+
+    chain, _ = HASH_CHAIN_CELLS["hash_chain_65536"]
+    return {"hash_chain_65536": submit_witness(
+        pool, np.random.default_rng(19), ex.hash_chain(), [chain])}
 
 
 def phase_witness(pending):
@@ -1151,8 +1275,9 @@ def phase_witness(pending):
     (tables/master.py: fill_derived_main_columns, extend_host,
     fill_derived_aux_columns and the randomizer write), word for word, on
     u32_mix (first, so the AIR and the tapes are built before spin(12) is
-    timed) and on spin(12); then on config 5's sections that
-    `submit_config5_witness` handed to worker processes."""
+    timed) and on spin(12); then on config 5's sections and
+    hash_chain_65536's trace, whose host oracles `submit_config5_witness`
+    and `submit_hash_chain_witness` handed to worker processes."""
     import numpy as np
     import torch
 
@@ -1203,21 +1328,20 @@ def phase_witness(pending):
             f"columns equal the host oracle; device {dev_s:.4f} s, host "
             f"{host_s:.4f} s")
 
-    for section, (aet, challenges, randomizer, host) in pending.items():
+    for label, (aet, challenges, randomizer, host) in pending.items():
         h = aet.padded_height()
         main_air = mt.fill_main_table(aet, padded_height=h, device="cuda")
         got, dev_s = device_witness(main_air, challenges, randomizer)
         t0 = time.perf_counter()
         want, host_h, host_s = host.result()
         if host_h != h:
-            raise AssertionError(f"witness config 5 {section}: padded "
-                                 f"height {h} here, {host_h} in the worker")
-        compare(f"config 5 {section}", got, want)
-        log(f"witness config 5 {section} (padded height {h}): 379 main and "
-            f"91 aux columns equal the host oracle; device {dev_s:.4f} s, "
-            f"host (trace, fill and oracle in a worker process) "
-            f"{host_s:.1f} s, waited for here {time.perf_counter() - t0:.1f}"
-            f" s")
+            raise AssertionError(f"witness {label}: padded height {h} here, "
+                                 f"{host_h} in the worker")
+        compare(label, got, want)
+        log(f"witness {label} (padded height {h}): 379 main and 91 aux "
+            f"columns equal the host oracle; device {dev_s:.4f} s, host "
+            f"(trace, fill and oracle in a worker process) {host_s:.1f} s, "
+            f"waited for here {time.perf_counter() - t0:.1f} s")
 
 
 def main(argv=None):
@@ -1275,25 +1399,32 @@ def main(argv=None):
             k["mesh_shard_ms"] = {s: t for s, (t, _) in shapes.items()}
             k["mesh_shard_bound_ms"] = {s: b for s, (_, b) in shapes.items()}
     launches, proofs = {}, {}
-    # the host oracles of the witness phase's config 5 sections run in
-    # two worker processes, from the end of the recursive_verifier path
+    # the host oracles of the witness phase's config 5 sections and of
+    # hash_chain_65536's trace run in three worker processes, from the end
+    # of the recursive_verifier and hash_chain_65536 paths
     with (concurrent.futures.ProcessPoolExecutor(
-            2, mp_context=multiprocessing.get_context("spawn"))
+            3, mp_context=multiprocessing.get_context("spawn"))
           if "witness" in phases else contextlib.nullcontext()) as pool:
-        pending = None
+        pending = {}
         for path in PATHS:
             if path in phases:
                 for kernel, n in drive_path(path, proofs).items():
                     launches[kernel] = launches.get(kernel, 0) + n
-                if path == "recursive_verifier" and pool is not None:
-                    pending = submit_config5_witness(
-                        pool, proofs["recursive_verifier_build"])
+                if pool is None:
+                    continue
+                if path == "recursive_verifier":
+                    pending.update(submit_config5_witness(
+                        pool, proofs["recursive_verifier_build"]))
+                elif path == "hash_chain_65536":
+                    pending.update(submit_hash_chain_witness(pool))
         if launches:
             log(f"kernel launches on the main path, all paths: "
                 f"{json.dumps(launches)}")
         if "witness" in phases:
-            if pending is None:
-                pending = submit_config5_witness(pool, config5(1))
+            if "config 5 queries" not in pending:
+                pending.update(submit_config5_witness(pool, config5(1)))
+            if "hash_chain_65536" not in pending:
+                pending.update(submit_hash_chain_witness(pool))
             phase_witness(pending)
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)

@@ -2,8 +2,11 @@
 extend_device) against the JAX package's host witness, word for word.
 
 The JAX VM and the JAX `fill_main_table` produce the main table of the
-every-instruction program and of `u32_mix`; the same numpy table and the
-same seeded challenges go through the port's `main_witness_dev` /
+every-instruction program, of `u32_mix`, of `hash_chain` input 10
+(BASELINE config 3: padded height 2^11, 1,037 cascade and 96 hash rows)
+and of bench.py's Merkle authentication path in a tree of height 3
+(config 4, its digests divined); the same numpy table and the same
+seeded challenges go through the port's `main_witness_dev` /
 `aux_witness_dev` on the CPU. All 379 main and 91 aux columns must equal
 the JAX package's `fill_derived_main_columns` + `extend_host` +
 `fill_derived_aux_columns` + the randomizer write. The log-depth scans
@@ -47,12 +50,21 @@ def _trace(name):
         aet, output = JVM.trace_execution(program, public_input,
                                           non_determinism)
         return program, list(public_input.individual_tokens), aet, output
-    program = jex.u32_mix()
-    aet, output = JVM.trace_execution(program, JPublicInput([50]))
-    return program, [50], aet, output
+    if name == "merkle_auth":
+        from tests.test_torch_baseline_configs import jax_merkle_auth
+
+        program, public_input, non_determinism = jax_merkle_auth(3)
+        aet, output = JVM.trace_execution(
+            program, JPublicInput(public_input), non_determinism)
+        return program, public_input, aet, output
+    program, public_input = {"u32_mix": (jex.u32_mix(), [50]),
+                             "hash_chain": (jex.hash_chain(), [10])}[name]
+    aet, output = JVM.trace_execution(program, JPublicInput(public_input))
+    return program, public_input, aet, output
 
 
-@pytest.fixture(scope="module", params=["every_instruction", "u32_mix"])
+@pytest.fixture(scope="module", params=["every_instruction", "u32_mix",
+                                        "hash_chain", "merkle_auth"])
 def case(request):
     """The JAX host witness of one trace and the port's inputs: the AIR
     main table, the 63 challenges and the batch-randomizer column."""
