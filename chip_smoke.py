@@ -88,7 +88,14 @@ non-zero and prints no result line:
    (padded height 2^16 each; their host oracles run in three worker
    processes from the end of the recursive_verifier and hash_chain_65536
    paths on, beside the paths that follow), word for word against the
-   host oracle of tables/master.py, with the device and host times.
+   host oracle of tables/master.py, with the device and host times;
+15. [bench] the port's benchmark entry point as a user runs it,
+   `python -m triton_vm_tpu_torch.bench`, in a process of its own for
+   fib_1024 and for spin_65536 with TVM_BENCH_SOL=1 and TVM_PROFILE=1 (the
+   cold and the warm prove's profiles on stderr): it must exit 0 and
+   its last line must be a whole result (no `partial` or `incomplete`;
+   `stages`, `verify_s` and `sol` present); every line is printed, and
+   the speed-of-light pass's K1 and K2 times beside the kernels phase's.
 
 [spin_262144] and [spin_524288], run only when `--phases` names them,
 prove `spin(18)` and `spin(19)` (padded heights 2^18 and 2^19, LDT
@@ -116,14 +123,16 @@ mesh's (`PER_PROVE_HEIGHTS`). `torch.cuda.empty_cache()` runs before
 each proving path, so one path's cached blocks move neither the next
 one's cache decision nor its peak. The launch counts of both kernels are
 set to 0 just before each proving path (phases 4-13) and read just after
-it; both must be above 0 on every path, and every prove but fib_1024's,
+it (the bench's process starts from 0 and prints the launches of its
+proves and verify, its speed-of-light pass left out); both must be above
+0 on every path, and every prove but fib_1024's,
 fib_1024_stir's and the mesh's (which counts its own) must launch K1
 once per Merkle layer and K2 once per committed table (once per hashed
 coset of the main and aux tables on the JIT path) and STIR tree, as the
 per-prove totals assume. The line before the last is a JSON object with
 each kernel's numbers (launches summed over every path, config 5's inner
-proof and build included); the last line is the device record. Needs one
-card, no network; imports nothing of JAX.
+proof and build and the bench's proves included); the last line is the
+device record. Needs one card, no network; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -133,6 +142,8 @@ import concurrent.futures
 import contextlib
 import json
 import multiprocessing
+import os
+import re
 import subprocess
 import sys
 import time
@@ -226,7 +237,7 @@ PATHS = ("fib_1024", "spin_32768", "fib_1024_stir", "spin_65536",
          "hash_chain", "merkle_auth", "hash_chain_65536", "spin_1048576",
          "spin_262144", "spin_524288", "recursive_verifier_full",
          "hash_chain_1048576")
-PHASES = ("kernels",) + PATHS + ("witness",)
+PHASES = ("kernels",) + PATHS + ("witness", "bench")
 OPTIONAL_PHASES = ("spin_262144", "spin_524288", "recursive_verifier_full",
                    "hash_chain_1048576")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPTIONAL_PHASES)
@@ -245,6 +256,10 @@ PER_PROVE_HEIGHTS = (("spin_32768", 15), ("spin_65536", 16),
                      ("factorial_4096", 13), ("hash_chain", 14),
                      ("hash_chain_65536", 16), ("hash_chain_1048576", 20))
 MESH_SHARDS = 4  # TVM_MESH of the mesh phase
+# bench.py's configs the bench phase runs through the port's entry point,
+# each in a process given a little more than the entry point's 540 s budget
+BENCH_CONFIGS = ("fib_1024", "spin_65536")
+BENCH_TIMEOUT_S = 600
 # prove and verify wall-clock (s) of each path's proof, by label
 WALL = {}
 
@@ -1344,6 +1359,63 @@ def phase_witness(pending):
             f"waited for here {time.perf_counter() - t0:.1f} s")
 
 
+def phase_bench(kernels):
+    """The bench phase (phase 15). `kernels` are the kernels phase's
+    records, if it ran. Returns the K1 and K2 launches of the bench's
+    proves and verifies, which it prints on stderr."""
+    import torch
+
+    from triton_vm_tpu_torch import bench
+
+    torch.cuda.empty_cache()
+    timed = {k["name"]: k for k in kernels}
+    launches = {}
+    for name in BENCH_CONFIGS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "triton_vm_tpu_torch.bench"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, TVM_BENCH=name, TVM_BENCH_SOL="1",
+                     TVM_PROFILE="1"),
+            capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"bench {name}: {line}")
+        for line in proc.stderr.splitlines():
+            log(f"bench {name} (stderr): {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"bench {name} exited {proc.returncode}")
+        last = json.loads(proc.stdout.splitlines()[-1])
+        if ("partial" in last or "incomplete" in last
+                or not {"stages", "verify_s", "sol"} <= last.keys()
+                or not last["stages"]
+                or last["metric"] != bench.metric(name)):
+            raise AssertionError(f"bench {name}: not a whole result: {last}")
+        counts = json.loads(re.search(
+            r"kernel launches \(proves and verify\): (\{.*\})",
+            proc.stderr).group(1))
+        for kernel, n in counts.items():
+            if n <= 0:
+                raise AssertionError(f"{kernel} was never launched in "
+                                     f"bench {name}'s proves")
+            launches[kernel] = launches.get(kernel, 0) + n
+        sol = last["sol"]
+        b = bench.SOL_BATCH
+        beside = ""
+        if timed:
+            beside = (f"; kernels phase: K1 2^18 "
+                      f"{timed['tip5_permutation']['ms_by_width']['2^18']:.4f}"
+                      f" ms, K2 2^18 x 379 column-major "
+                      f"{timed['tip5_sponge_rows']['ms']:.3f} ms")
+        log(f"bench {name}: prove {last['value']} s warm, "
+            f"{last['cold_prove_s']} s cold, verify {last['verify_s']} s, "
+            f"ramp {last['ramp_s']} s, {wall:.1f} s with the process; SOL "
+            f"K1 2^18 {1e3 * b / sol['tip5_perms_per_s']:.4f} ms, K2 2^18 x "
+            f"379 row-major {1e3 * b / sol['row_sponge_rows_per_s']:.3f} ms"
+            + beside)
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
@@ -1426,6 +1498,12 @@ def main(argv=None):
             if "hash_chain_65536" not in pending:
                 pending.update(submit_hash_chain_witness(pool))
             phase_witness(pending)
+    if "bench" in phases:
+        counts = phase_bench(kernels)
+        log(f"kernel launches of the bench's proves and verifies: "
+            f"{json.dumps(counts)}")
+        for kernel, n in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + n
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
         k["regs"] = report[k["name"] + "_kernel"]["registers"]
