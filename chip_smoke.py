@@ -10,8 +10,9 @@ Phases, in order (`--phases` names in brackets); any failure exits
 non-zero and prints no result line:
 
 1. versions, the card's name and power limit, the build of both Tip5
-   kernels from csrc/ (seconds printed) and ptxas's report for each
-   (registers, spills, stack, shared memory);
+   kernels and of K3 from csrc/ (the two nvcc runs started together,
+   seconds printed) and ptxas's report for each kernel (registers,
+   spills, stack, shared memory);
 2. [kernels] K1 (Tip5 permutation) against its plain torch version on
    the card (2^18 random states, edge-value states, the MDS's worst-case
    states, a ragged 2^18 + 3 batch) and 8 states against the host
@@ -26,6 +27,14 @@ non-zero and prints no result line:
    `tip5.hash_varlen`; kernel times at all four widths, plain times at
    379 and 12, and K2's time per spin_32768 and per spin_65536 prove
    (every launch's shape timed);
+3b. [kernels] K3 (the AIR quotient, csrc/quotient.cu) against its plain
+   version at the full widths on 2^16 random rows, a ragged 2^16 + 3,
+   edge values, aux as a permuted view and a mesh shard's rows with their
+   halo; against the level tape (the CPU path's `_quotient_chunk_fn`) at
+   2^16 rows, both timed at 2^13 and 2^16; K3 timed at every prove's
+   launch shape (2^13 to 2^22 rows) and summed per prove, and held
+   against the level tape over every row of a 2^20 prove's 2^21-row JIT
+   coset (its next-row shift, aux a permuted view);
 4. [fib_1024] the main path on the card: `prove_program` on fibonacci
    input 85 (padded height 2^10, FRI) with seed bytes(range(32)), the
    proof digest held against the JAX package's, `Stark.verify` accepting
@@ -121,23 +130,28 @@ rows of 15 and 2^21 rows of 12 (the widest STIR tree's leaves) against
 their plain versions, and sums K1 and K2 per prove of every path but the
 mesh's (`PER_PROVE_HEIGHTS`). `torch.cuda.empty_cache()` runs before
 each proving path, so one path's cached blocks move neither the next
-one's cache decision nor its peak. The launch counts of both kernels are
+one's cache decision nor its peak. The launch counts of the kernels are
 set to 0 just before each proving path (phases 4-13) and read just after
 it (the bench's process starts from 0 and prints the launches of its
-proves and verify, its speed-of-light pass left out); both must be above
-0 on every path, and every prove but fib_1024's,
+proves and verify, its speed-of-light pass left out); all three must be
+above 0 on every path, and every prove but fib_1024's,
 fib_1024_stir's and the mesh's (which counts its own) must launch K1
-once per Merkle layer and K2 once per committed table (once per hashed
-coset of the main and aux tables on the JIT path) and STIR tree, as the
-per-prove totals assume. The line before the last is a JSON object with
-each kernel's numbers (launches summed over every path, config 5's inner
-proof and build and the bench's proves included); the last line is the
-device record. Needs one card, no network; imports nothing of JAX.
+once per Merkle layer, K2 once per committed table (once per hashed
+coset of the main and aux tables on the JIT path) and STIR tree, and K3
+once (once per coset on the JIT path), as the per-prove totals assume.
+While a path proves, the quotient stage's level-tape chunk function and
+K3's plain versions raise if handed a tensor on the card (the derived
+columns' fill still runs `run_tape_scan` there). The line before the last
+is a JSON object with each kernel's numbers (launches summed over every
+path, config 5's inner proof and build and the bench's proves included);
+the last line is the device record. Needs one card, no network; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import json
@@ -277,6 +291,9 @@ INT32_OPS_PER_SM_PER_CLOCK = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 SOURCE = "triton_vm_tpu_torch/csrc/tip5.cu"
+SOURCE_K3 = "triton_vm_tpu_torch/csrc/quotient.cu"
+# K3 has no Pallas counterpart: the JAX package jits the same function
+K3_REPLACES = "triton_vm_tpu/stark/prover.py:1185"
 
 
 def log(msg):
@@ -402,26 +419,35 @@ class Bound:
             f"{self.int_ops_per_s / 1e12:.2f} Tops/s")
 
     def __call__(self, bytes_moved, permutations):
+        return self.ops(bytes_moved,
+                        permutations * INT32_OPS_PER_PERMUTATION)
+
+    def ops(self, bytes_moved, int32_ops):
         t_bytes = bytes_moved / HBM_BYTES_PER_S
-        t_ops = permutations * INT32_OPS_PER_PERMUTATION / self.int_ops_per_s
+        t_ops = int32_ops / self.int_ops_per_s
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes > t_ops else "operations")
 
 
 def phase_build():
-    """Build both kernels; returns ptxas's report for each (registers,
-    spills, stack and shared memory)."""
+    """Build every kernel (both sources' nvcc runs started together);
+    returns ptxas's report for each (registers, spills, stack and shared
+    memory)."""
     import torch
 
-    from triton_vm_tpu_torch.ops import tip5_cuda
+    from triton_vm_tpu_torch.ops import quotient_cuda, tip5_cuda
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     log(f"device: {torch.cuda.get_device_name(0)} "
         f"(count {torch.cuda.device_count()})")
-    secs = tip5_cuda.load()
-    log(f"built Tip5 kernels from {SOURCE} in {secs:.1f} s")
-    report = tip5_cuda.ptxas_report()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        k3 = pool.submit(quotient_cuda.load)
+        secs = tip5_cuda.load()
+        k3_secs = k3.result()
+    log(f"built Tip5 kernels from {SOURCE} in {secs:.1f} s, K3 from "
+        f"{SOURCE_K3} in {k3_secs:.1f} s (both builds started together)")
+    report = {**tip5_cuda.ptxas_report(), **quotient_cuda.ptxas_report()}
     for name, rec in report.items():
         log(f"ptxas {name}: {json.dumps(rec)}")
     return report
@@ -656,10 +682,195 @@ def phase_k2(rng, bound):
                 per_prove_bound_ms={k: bms for k, (_, bms) in totals.items()})
 
 
-def _launches_since(before):
-    from triton_vm_tpu_torch.ops import tip5_cuda
+def k3_launches_per_prove(log2_height, jit=None):
+    """(rows, count) of K3's launches in a prove at padded height
+    2^log2_height: one over the quotient domain on the cached path, one
+    per coset of the randomized trace's length on the JIT path (from 2^20
+    unless `jit` says otherwise)."""
+    from triton_vm_tpu_torch import Stark
 
-    return {k: v - before[k] for k, v in tip5_cuda.launches.items()}
+    _, _, _, rand_dom, quot_dom, _ = Stark().derive_domains(
+        1 << log2_height)
+    if log2_height >= 20 if jit is None else jit:
+        return rand_dom.length, quot_dom.length // rand_dom.length
+    return quot_dom.length, 1
+
+
+def jit_coset_shift(log2_height):
+    """The next-row shift within a JIT coset at padded height
+    2^log2_height (stark/jit_lde.py: unit // m)."""
+    from triton_vm_tpu_torch import Stark
+
+    _, _, trace_dom, rand_dom, quot_dom, _ = Stark().derive_domains(
+        1 << log2_height)
+    m = quot_dom.length // rand_dom.length
+    return quot_dom.length // trace_dom.length // m
+
+
+def phase_k3(rng, bound):
+    """K3 (csrc/quotient.cu) on the card at the full widths (379 main, 91
+    aux columns): held word for word against the plain version on 2^16
+    random rows, a ragged 2^16 + 3, edge values (every column cycling
+    through 0, 1, p - 1, 2^32), aux as a permuted view and a mesh shard's
+    block with its halo (M = N + 8); then against the level tape
+    (`_quotient_chunk_fn`, the CPU path) at 2^16 rows, both timed at 2^13
+    and 2^16 (launches against arithmetic); K3 timed with CUDA events at
+    every prove's launch shape and summed per prove, and at the 2^21-row
+    JIT coset of a 2^20 prove (its shift, aux permuted) held against the
+    level tape over all its rows, 2^16 at a time."""
+    import torch
+
+    from triton_vm_tpu_torch.air import compile as aircomp
+    from triton_vm_tpu_torch.ops import quotient_cuda
+    from triton_vm_tpu_torch.tools import quotient_inputs as qi
+
+    tape = aircomp.quotient_row_tape()
+    n = 1 << 16
+    checks = {"2^16": dict(), "2^16+3": dict(n=n + 3),
+              "edge values": dict(edge=True),
+              "permuted aux": dict(permuted_aux=True),
+              "halo 8": dict(halo=8)}
+    timed = None
+    for label, kw in checks.items():
+        inp = qi.make_inputs(rng, kw.pop("n", n), "cuda", **kw)
+        err = max_abs_err(qi.k3(inp), qi.plain(inp))
+        if err:
+            raise AssertionError(f"K3 disagrees with its plain version at "
+                                 f"{label}: {err}")
+        if label == "2^16":
+            timed = inp
+        del inp
+    log("K3 equals its plain version word for word: " + ", ".join(checks))
+    plain_ms = time_ms(lambda: qi.plain(timed), 1)
+    level = {}
+    for k in (13, 16):
+        inp = timed if k == 16 else qi.make_inputs(rng, 1 << k, "cuda")
+        if k == 16:
+            err = max_abs_err(qi.k3(inp), qi.level_tape(inp))
+            if err:
+                raise AssertionError(f"K3 disagrees with the level tape at "
+                                     f"2^16: {err}")
+        level[f"2^{k}"] = (time_ms(lambda: qi.k3(inp), 10),
+                           time_ms(lambda: qi.level_tape(inp), 1))
+        log(f"K3 against the level tape at 2^{k} rows: K3 "
+            f"{level[f'2^{k}'][0]:.3f} ms, level tape "
+            f"{level[f'2^{k}'][1]:.1f} ms")
+    del inp, timed
+    # every prove's launch shapes (recursive_verifier_full's coset of 2^22
+    # rows too), aux a permuted view as the provers pass it, each with its
+    # bound; the JIT coset of a 2^20 prove with its own shift
+    jit_rows, _ = k3_launches_per_prove(20)
+    shapes = sorted({k3_launches_per_prove(h)[0] for _, h in
+                     PER_PROVE_HEIGHTS + (("recursive_verifier_full", 21),)}
+                    | {n})
+    by_rows = {}
+    for rows in shapes:
+        shift = jit_coset_shift(20) if rows == jit_rows else 4
+        inp = qi.make_inputs(rng, rows, "cuda", permuted_aux=True,
+                             shift=shift, device_draw=True)
+        reps = 2 if rows >= 1 << 20 else 10
+        ms = time_ms(lambda: qi.k3(inp), reps)
+        b = bound.ops(*quotient_cuda.work(tape, rows, inp["trace_len"]))
+        by_rows[rows] = (ms, *b)
+        log(f"K3 2^{rows.bit_length() - 1} rows: {ms:.3f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]})")
+        if rows == jit_rows:
+            got = qi.k3(inp)
+            for s in range(0, rows, n):
+                err = max_abs_err(got[:, s:s + n],
+                                  qi.level_tape(inp, s, s + n))
+                if err:
+                    raise AssertionError(
+                        f"K3 disagrees with the level tape at the 2^21 JIT "
+                        f"coset, rows {s}..{s + n - 1}: {err}")
+            log(f"K3 equals the level tape word for word at the 2^21 JIT "
+                f"coset (shift {shift}, aux permuted), all rows")
+            del got
+        del inp
+        torch.cuda.empty_cache()
+    per_prove = {}
+    for label, h in PER_PROVE_HEIGHTS + (("recursive_verifier_full", 21),):
+        rows, count = k3_launches_per_prove(h)
+        per_prove[label] = (count * by_rows[rows][0],
+                            count * by_rows[rows][1])
+    log("K3 per prove (ms, bound ms): " + json.dumps(per_prove))
+    ms, bound_ms, bound_by = by_rows[n]
+    log(f"K3 ok (max_abs_err 0); 2^16 rows: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(name="quotient_rows", route="cuda", source=SOURCE_K3,
+                replaces=K3_REPLACES, max_abs_err=0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None,
+                ms_by_rows={f"2^{r.bit_length() - 1}": v[0]
+                            for r, v in by_rows.items()},
+                bound_ms_by_rows={f"2^{r.bit_length() - 1}": v[1]
+                                  for r, v in by_rows.items()},
+                level_tape_ms={k: v[1] for k, v in level.items()},
+                k3_ms_beside_level={k: v[0] for k, v in level.items()},
+                per_prove_ms={k: t for k, (t, _) in per_prove.items()},
+                per_prove_bound_ms={k: b for k, (_, b) in per_prove.items()})
+
+
+def all_launches():
+    """Every kernel's launches so far: K1, K2 and K3."""
+    from triton_vm_tpu_torch.ops import quotient_cuda, tip5_cuda
+
+    return {**tip5_cuda.launches, **quotient_cuda.launches}
+
+
+def launches_by_device():
+    """Every kernel's launches so far by the card it launched on."""
+    from triton_vm_tpu_torch.ops import quotient_cuda, tip5_cuda
+
+    out = {}
+    for counts in (tip5_cuda.launches_by_device,
+                   quotient_cuda.launches_by_device):
+        for d, c in counts.items():
+            out.setdefault(d, dict.fromkeys(all_launches(), 0)).update(c)
+    return out
+
+
+def reset_launch_counts():
+    from triton_vm_tpu_torch.ops import quotient_cuda, tip5_cuda
+
+    tip5_cuda.reset_launch_counts()
+    quotient_cuda.reset_launch_counts()
+
+
+@contextlib.contextmanager
+def quotients_through_k3():
+    """While a path proves: the quotient stage's level-tape chunk function
+    (`prover._quotient_chunk_fn`) and K3's plain versions raise if they
+    are handed a tensor on the card, so every prove's quotient stage must
+    go through K3. `run_tape_scan` itself is not guarded: the derived
+    columns' fill (tables/extend_device.py) still runs it on the card."""
+    from triton_vm_tpu_torch.ops import quotient_cuda
+    from triton_vm_tpu_torch.stark import prover
+
+    saved = {(prover, "_quotient_chunk_fn"): prover._quotient_chunk_fn,
+             (quotient_cuda, "quotients_on_rows_plain"):
+                 quotient_cuda.quotients_on_rows_plain,
+             (quotient_cuda, "run_row_tape_plain"):
+                 quotient_cuda.run_row_tape_plain}
+
+    def guard(name, fn):
+        def guarded(*args, **kwargs):
+            if any(getattr(a, "is_cuda", False) for a in args):
+                raise AssertionError(f"{name} ran on the card in a prove")
+            return fn(*args, **kwargs)
+        return guarded
+
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, guard(name, fn))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def _launches_since(before):
+    return {k: v - before[k] for k, v in all_launches().items()}
 
 
 def prove_and_verify(label, program, public_input, ldt_choice=None,
@@ -676,15 +887,14 @@ def prove_and_verify(label, program, public_input, ldt_choice=None,
     from triton_vm_tpu_torch.fields.bfe import P
     from triton_vm_tpu_torch.ldt.fri import LdtError
     from triton_vm_tpu_torch.stark.codec import DecodeError
-    from triton_vm_tpu_torch.ops import tip5_cuda
     from triton_vm_tpu_torch.utils import profiler
 
     torch.cuda.empty_cache()
     cards = range(torch.cuda.device_count())
     for card in cards:
         torch.cuda.reset_peak_memory_stats(card)
-    before = dict(tip5_cuda.launches)
-    before_dev = {d: dict(c) for d, c in tip5_cuda.launches_by_device.items()}
+    before = all_launches()
+    before_dev = launches_by_device()
     profiler.start(label)
     t0 = time.perf_counter()
     if ldt_choice is None:
@@ -707,8 +917,8 @@ def prove_and_verify(label, program, public_input, ldt_choice=None,
               for t in profile.tasks if t.parent is not None}
     launches = {"prove": _launches_since(before), "prove_by_device": {
         d: {k: n - before_dev.get(d, {}).get(k, 0) for k, n in c.items()}
-        for d, c in tip5_cuda.launches_by_device.items()}}
-    before = dict(tip5_cuda.launches)
+        for d, c in launches_by_device().items()}}
+    before = all_launches()
     t0 = time.perf_counter()
     if not stark.verify(claim, proof):
         raise AssertionError(f"{label}: verify rejected the proof")
@@ -736,6 +946,10 @@ def prove_and_verify(label, program, public_input, ldt_choice=None,
                                   / 2**30, 2) for card in cards}))
     log(f"{label} stages (s): " + json.dumps(
         {name: round(sec, 4) for name, sec, _ in stages}))
+    log(f"{label}: quotients span "
+        f"{sum(sec for name, sec, _ in stages if name == 'quotients'):.4f}"
+        f" s, K3 launches {launches['prove']['quotient_rows']} in the "
+        f"prove, {launches['verify']['quotient_rows']} in the verify")
     if nested:
         log(f"{label} spans within stages (s): " + json.dumps(nested))
     log(f"{label} kernel launches: " + json.dumps(launches))
@@ -777,14 +991,21 @@ def check_proof(label, log2_height, stark, proof, launches, jit):
     if k2 != want_k2:
         raise AssertionError(f"{label} launched K2 {k2} times, not "
                              f"{want_k2}")
+    k3 = launches["prove"]["quotient_rows"]
+    rows, want_k3 = k3_launches_per_prove(log2_height, jit)
+    if k3 != want_k3:
+        raise AssertionError(f"{label} launched K3 {k3} times, not "
+                             f"{want_k3} (2^{rows.bit_length() - 1} rows "
+                             "each)")
 
 
 def mesh_launch_counts(log2_height, shards):
-    """K1 and K2 launches of a prove sharded over `shards` shards (cached
-    LDE): the main and aux trees take one K2 launch a shard and one K1
-    launch per layer of each shard's subtree, then one per layer of the
-    top log2(shards) layers on the lead device; the quotient tree and the
-    low-degree test's trees stay on the lead device."""
+    """K1, K2 and K3 launches of a prove sharded over `shards` shards
+    (cached LDE): the main and aux trees take one K2 launch a shard and
+    one K1 launch per layer of each shard's subtree, then one per layer of
+    the top log2(shards) layers on the lead device; the quotient tree and
+    the low-degree test's trees stay on the lead device; K3 runs once a
+    shard over its rows and halo."""
     from triton_vm_tpu_torch import Stark
     from triton_vm_tpu_torch.ldt.stir import Stir
 
@@ -794,7 +1015,7 @@ def mesh_launch_counts(log2_height, shards):
     leaves = ldt_tree_leaves(ldt)
     k1 = 2 * (shards * (log_l - log_d) + log_d) + log_l + sum(leaves)
     k2 = 2 * shards + 1 + (len(leaves) if isinstance(ldt, Stir) else 0)
-    return k1, k2
+    return k1, k2, shards
 
 
 def phase_mesh_kernels(rng, bound):
@@ -870,16 +1091,26 @@ def drive_mesh(proofs):
             missing = [c for c in cards
                        if not all(by_card.get(c, {}).values())]
             if missing:
-                raise AssertionError(f"{label}: K1 or K2 never launched on "
-                                     f"{missing}: {by_card}")
+                raise AssertionError(f"{label}: K1, K2 or K3 never launched "
+                                     f"on {missing}: {by_card}")
+            # K3 once a shard, on the shard's own card
+            k3_cards = {c: n["quotient_rows"] for c, n in by_card.items()
+                        if n["quotient_rows"]}
+            shard_cards = dict(collections.Counter(
+                str(d) for d in mesh.devices))
+            if k3_cards != shard_cards:
+                raise AssertionError(f"{label}: K3 launched {k3_cards} by "
+                                     f"card, the shards lie {shard_cards}")
             want = mesh_launch_counts(log2_height, MESH_SHARDS)
             got = (launches["prove"]["tip5_permutation"],
-                   launches["prove"]["tip5_sponge_rows"])
+                   launches["prove"]["tip5_sponge_rows"],
+                   launches["prove"]["quotient_rows"])
             if got != want:
-                raise AssertionError(f"{label}: K1/K2 launched {got} times, "
-                                     f"not {want}")
-            log(f"{label}: K1/K2 launches {got} as a {MESH_SHARDS}-shard "
-                f"prove makes them; six-step transforms {six_step}")
+                raise AssertionError(f"{label}: K1/K2/K3 launched {got} "
+                                     f"times, not {want}")
+            log(f"{label}: K1/K2/K3 launches {got} as a {MESH_SHARDS}-shard "
+                f"prove makes them (K3 by card {k3_cards}); six-step "
+                f"transforms {six_step}")
             if label == "mesh_fib_1024":
                 check_digest(label, proof, JAX_FIB85_DIGEST)
                 continue
@@ -932,14 +1163,27 @@ def drive_path(name, proofs):
     0 just before it and read just after; every kernel must have been
     launched. `proofs` holds the proofs of this run by path name
     (spin_65536_jit is held against spin_65536's) and config 5's built
-    verifier core (the witness phase reuses it). Returns the counts."""
+    verifier core (the witness phase reuses it). Every prove's quotient
+    stage must run K3 (`quotients_through_k3`). Returns the counts."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with quotients_through_k3():
+        drive_proofs(name, proofs)
+    counts = all_launches()
+    log(f"{name} kernel launches, prove and verify: {json.dumps(counts)}")
+    log(f"{name} path: {time.perf_counter() - t0:.3f} s")
+    for kernel, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"{kernel} was never launched on {name}")
+    return counts
+
+
+def drive_proofs(name, proofs):
+    """The proves of path `name` (see drive_path)."""
     from triton_vm_tpu_torch.crypto import tip5
     from triton_vm_tpu_torch.models import baseline
     from triton_vm_tpu_torch.models import example_programs as ex
-    from triton_vm_tpu_torch.ops import tip5_cuda
 
-    tip5_cuda.reset_launch_counts()
-    t0 = time.perf_counter()
     if name in RV_CELLS:
         drive_recursive_verifier(name, proofs)
     elif name == "fib_1024":
@@ -977,13 +1221,6 @@ def drive_path(name, proofs):
             log(f"{name}: proof equals spin_65536's word for word "
                 f"(digest {digests[0]})")
         proofs[name] = proof
-    counts = dict(tip5_cuda.launches)
-    log(f"{name} kernel launches, prove and verify: {json.dumps(counts)}")
-    log(f"{name} path: {time.perf_counter() - t0:.3f} s")
-    for kernel, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"{kernel} was never launched on {name}")
-    return counts
 
 
 def config5(num_queries):
@@ -1452,7 +1689,8 @@ def main(argv=None):
     bound = (Bound() if phases & {"kernels", "mesh", "recursive_verifier_full"}
              else None)
     if "kernels" in phases:
-        kernels = [phase_k1(rng, bound), phase_k2(rng, bound)]
+        kernels = [phase_k1(rng, bound), phase_k2(rng, bound),
+                   phase_k3(rng, bound)]
     if "recursive_verifier_full" in phases:
         full = phase_kernels_full(rng, bound)
         if not kernels:
@@ -1466,6 +1704,8 @@ def main(argv=None):
     if "mesh" in phases:
         mesh_checks = phase_mesh_kernels(rng, bound)
         for k in kernels:
+            if k["name"] not in mesh_checks:
+                continue
             err, shapes = mesh_checks[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], err)
             k["mesh_shard_ms"] = {s: t for s, (t, _) in shapes.items()}

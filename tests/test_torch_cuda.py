@@ -232,3 +232,34 @@ def test_mesh_proof_on_the_card_equals_cpu(cuda, monkeypatch, ldt):
         torch.cuda.device_count() > 1
     assert (ntt_sharded.launches["ntt_sharded"] > 0) == (ldt == "stir")
     assert stark.verify(claim, proofs["cuda"])
+
+
+@pytest.mark.parametrize("case", ["random", "ragged", "edge values",
+                                  "permuted aux", "halo"])
+def test_quotient_kernel_matches_plain(cuda, case):
+    """K3 (csrc/quotient.cu) at the full widths (379 main, 91 aux
+    columns) against its plain version, word for word."""
+    from triton_vm_tpu_torch.tools import quotient_inputs as qi
+
+    rng = np.random.default_rng(12)
+    n = (1 << 12) + (3 if case == "ragged" else 0)
+    inp = qi.make_inputs(rng, n, cuda, edge=case == "edge values",
+                         permuted_aux=case == "permuted aux",
+                         halo=8 if case == "halo" else 0)
+    assert torch.equal(qi.k3(inp), qi.plain(inp))
+
+
+def test_quotient_kernel_refuses_what_it_cannot_take(cuda):
+    from triton_vm_tpu_torch.tools import quotient_inputs as qi
+
+    inp = qi.make_inputs(np.random.default_rng(13), 64, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        qi.k3(dict(inp, ws=inp["ws"].T.contiguous().T))
+    with pytest.raises(TypeError, match="int64"):
+        qi.k3(dict(inp, main=inp["main"].to(torch.int32)))
+    with pytest.raises(ValueError, match="do not match"):
+        qi.k3(dict(inp, aux=inp["aux"][:, :, :32]))
+    with pytest.raises(ValueError, match="main columns"):
+        qi.k3(dict(inp, main=inp["main"][:100]))
+    with pytest.raises(ValueError, match="power of two"):
+        qi.k3(dict(inp, trace_len=6))

@@ -365,3 +365,202 @@ def phase_tape(phase: str) -> Tape:
 
     steps, out_ids = linearize(master_air().constraints[phase])
     return compile_tape(steps, out_ids)
+
+
+# ------------------------------------------------------------- row tapes
+#
+# A row tape is the same DAG as a sequential program for one row at a
+# time, the form K3 (csrc/quotient.cu) runs: one instruction after another
+# in `linearize` order, each output folded into its phase's accumulator as
+# soon as it is produced, registers recycled at their last read. The live
+# set is a few hundred words a row, where the level tape's banks hold
+# thousands.
+
+# Operand kinds: the high 16 bits of an operand word, the index the low 16.
+BREG, XREG, MAIN, NEXT_MAIN, AUX, NEXT_AUX, CHALLENGE, BCONST, XCONST = \
+    range(9)
+_INPUT_KIND = {C.MAIN: MAIN, C.NEXT_MAIN: NEXT_MAIN, C.AUX: AUX,
+               C.NEXT_AUX: NEXT_AUX}
+# Instructions, rows (op, dst, a, b) of int32. The binops write register
+# dst of their result's file; an XFE-by-base op takes the XFE operand as
+# a. FOLD_B / FOLD_X add weight[dst] * a to the phase's accumulator;
+# PHASE_END adds the accumulator times phase dst's zerofier inverse to the
+# total and clears the accumulator.
+BB_ADD, BB_MUL, BX_ADD, BX_MUL, XX_ADD, XX_MUL, FOLD_B, FOLD_X, PHASE_END = \
+    range(9)
+_BINOPS = {"bb+": BB_ADD, "bb*": BB_MUL, "bx+": BX_ADD, "bx*": BX_MUL,
+           "xx+": XX_ADD, "xx*": XX_MUL}
+
+
+def operand(kind: int, index: int) -> int:
+    assert 0 <= index < 1 << 16
+    return kind << 16 | index
+
+
+class RowTape:
+    """A row tape (see above).
+
+    Attributes:
+      code: int32 (n, 4) instructions (op, dst, a, b).
+      bconsts: uint64 (nbc,) and xconsts: uint64 (nxc, 3), the constants
+        that BCONST and XCONST operands index.
+      num_bregs, num_xregs: registers of each file the code uses.
+      num_weights: the outputs, each with its weight index.
+      num_phases: PHASE_END instructions, phases 0 .. num_phases - 1.
+    """
+
+    def __init__(self, code, bconsts, xconsts, num_bregs, num_xregs,
+                 num_weights, num_phases):
+        self.code = code
+        self.bconsts = bconsts
+        self.xconsts = xconsts
+        self.num_bregs = num_bregs
+        self.num_xregs = num_xregs
+        self.num_weights = num_weights
+        self.num_phases = num_phases
+
+    @property
+    def reg_words(self) -> int:
+        """Words of register file a row needs: a base register is one
+        word, an XFE register three."""
+        return self.num_bregs + 3 * self.num_xregs
+
+    def operands(self):
+        """Every operand word the code reads: a of the binops and folds,
+        b of the binops."""
+        op = self.code[:, 0]
+        return np.concatenate([self.code[op <= FOLD_X, 2],
+                               self.code[op <= XX_MUL, 3]])
+
+
+def compile_row_tape(steps, out_ids) -> RowTape:
+    """The linearized DAG (`linearize`'s steps and outputs) as a row tape
+    of one phase: output k folded with weight k, then PHASE_END 0."""
+    if len(set(out_ids)) != len(out_ids):
+        raise ValueError("an output appears twice in out_ids")
+    kinds, payloads, is_base = {}, {}, {}
+    for nid, kind, payload in steps:
+        kinds[nid], payloads[nid] = kind, payload
+        if kind == "bconst":
+            is_base[nid] = True
+        elif kind in ("xconst", "challenge"):
+            is_base[nid] = False
+        elif kind == "input":
+            is_base[nid] = payload[0] in (C.MAIN, C.NEXT_MAIN)
+        else:
+            _, lid, rid = payload
+            is_base[nid] = is_base[lid] and is_base[rid]
+    weight_of = {nid: k for k, nid in enumerate(out_ids)}
+
+    # the instruction after which each binop's value is read no more; its
+    # fold comes right after it
+    binops = [nid for nid, kind, _ in steps if kind == "binop"]
+    last = {nid: i for i, nid in enumerate(binops)}
+    for i, nid in enumerate(binops):
+        for d in payloads[nid][1:]:
+            if kinds[d] == "binop":
+                last[d] = i
+
+    bconsts, xconsts = {}, {}
+    code = []
+
+    def leaf(nid):
+        kind, payload = kinds[nid], payloads[nid]
+        if kind == "bconst":
+            return operand(BCONST, bconsts.setdefault(payload,
+                                                      len(bconsts)))
+        if kind == "xconst":
+            return operand(XCONST, xconsts.setdefault(tuple(payload),
+                                                      len(xconsts)))
+        if kind == "challenge":
+            return operand(CHALLENGE, payload)
+        return operand(_INPUT_KIND[payload[0]], payload[1])
+
+    def fold(nid, opnd):
+        code.append((FOLD_B if is_base[nid] else FOLD_X, weight_of[nid],
+                     opnd, 0))
+
+    # outputs that are inputs or constants: no binop produces them
+    for nid in out_ids:
+        if kinds[nid] != "binop":
+            fold(nid, leaf(nid))
+
+    reg = {}
+    free = {True: [], False: []}
+    used = {True: 0, False: 0}
+    for i, nid in enumerate(binops):
+        op, lid, rid = payloads[nid]
+        lb, rb = is_base[lid], is_base[rid]
+        sig = ("bb" if lb and rb else "xx" if not (lb or rb) else "bx") + op
+        if sig[:2] == "bx" and lb:  # normalize: xfe operand on the left
+            lid, rid = rid, lid
+        opnds = [operand(BREG if is_base[d] else XREG, reg[d])
+                 if kinds[d] == "binop" else leaf(d) for d in (lid, rid)]
+        # operands read for the last time free their registers first, so
+        # the result may take one: the kernel reads before it writes (an
+        # operand that is an output was folded when it was produced)
+        for d in {lid, rid}:
+            if kinds[d] == "binop" and last[d] == i:
+                free[is_base[d]].append(reg.pop(d))
+        bank = is_base[nid]
+        if free[bank]:
+            reg[nid] = free[bank].pop()
+        else:
+            reg[nid] = used[bank]
+            used[bank] += 1
+        code.append((_BINOPS[sig], reg[nid], *opnds))
+        if nid in weight_of:
+            fold(nid, operand(BREG if bank else XREG, reg[nid]))
+        if last[nid] == i:  # an output that no binop reads
+            free[bank].append(reg.pop(nid))
+    code.append((PHASE_END, 0, 0, 0))
+
+    xc = np.zeros((len(xconsts), 3), np.uint64)
+    for v, j in xconsts.items():
+        xc[j] = v
+    return RowTape(np.array(code, np.int32).reshape(-1, 4),
+                   np.array(list(bconsts), np.uint64), xc, used[True],
+                   used[False], len(out_ids), 1)
+
+
+def join_row_tapes(tapes) -> RowTape:
+    """Row tapes run one after another as phases 0, 1, ... of one tape:
+    each tape's weights, constants and phase follow the previous ones'.
+    The register files are shared."""
+    codes, bconsts, xconsts = [], [], []
+    nw = nbc = nxc = nph = 0
+    for t in tapes:
+        code = t.code.copy()
+        op, dst = code[:, 0], code[:, 1]
+        dst[(op == FOLD_B) | (op == FOLD_X)] += nw
+        dst[op == PHASE_END] += nph
+        for col, reads in ((2, op <= FOLD_X), (3, op <= XX_MUL)):
+            kind = code[:, col] >> 16
+            code[reads & (kind == BCONST), col] += nbc
+            code[reads & (kind == XCONST), col] += nxc
+        codes.append(code)
+        bconsts.append(t.bconsts)
+        xconsts.append(t.xconsts)
+        nw += t.num_weights
+        nbc += len(t.bconsts)
+        nxc += len(t.xconsts)
+        nph += t.num_phases
+    return RowTape(np.concatenate(codes), np.concatenate(bconsts),
+                   np.concatenate(xconsts).reshape(-1, 3),
+                   max(t.num_bregs for t in tapes),
+                   max(t.num_xregs for t in tapes), nw, nph)
+
+
+PHASES = ("init", "cons", "tran", "term")
+
+
+@functools.lru_cache(maxsize=None)
+def quotient_row_tape() -> RowTape:
+    """The master AIR's four phases (PHASES) as one row tape: weight k is
+    the k-th constraint of all phases in that order."""
+    from .evaluate import linearize
+    from .master import master_air
+
+    air = master_air()
+    return join_row_tapes([compile_row_tape(*linearize(air.constraints[ph]))
+                           for ph in PHASES])

@@ -18,8 +18,9 @@ printed after the cold prove, `incomplete` and `phase_reached` the
 watchdog's line when the budget runs out before any prove ended.
 
 Phases:
-1. ramp: the CUDA context is created and the Tip5 kernels are built
-   (`tip5_cuda.load`) before the timed window; `ramp_s` is their seconds;
+1. ramp: the CUDA context is created and the Tip5 kernels and K3, the
+   quotient kernel, are built (`tip5_cuda.load`, `quotient_cuda.load`)
+   before the timed window; `ramp_s` is their seconds;
 2. witness: the config (`models/baseline.config`; config 5 proves its
    inner proof here, on the same device) and its execution trace;
 3. cold prove, the process's first: it builds the AIR (the `setup` span)
@@ -41,9 +42,9 @@ verify. A watchdog prints the best line known (or an `incomplete` one)
 15 s before TVM_BENCH_BUDGET_S (default 540) seconds have passed since
 `main` began, and phases that the rest of the budget cannot hold are
 skipped. Any error ends the process non-zero, watchdog line or not.
-On stderr: the card, and the Tip5 kernel launches of the proves and the
-verify; with TVM_PROFILE=1 also the cold and the warm prove's profiler
-reports.
+On stderr: the card, and the kernel launches (K1, K2 and K3) of the
+proves and the verify; with TVM_PROFILE=1 also the cold and the warm
+prove's profiler reports.
 Environment variables are read by `main`, never at import.
 """
 
@@ -61,7 +62,7 @@ import torch
 
 from .fields.bfe import P
 from .models import baseline
-from .ops import gf, ntt, tip5_cuda
+from .ops import gf, ntt, quotient_cuda, tip5_cuda
 from .stark.proof_stream import Claim
 from .stark.prover import Stark
 from .utils import profiler
@@ -176,15 +177,21 @@ def _timed(device, fn):
     return time.perf_counter() - t0, out
 
 
+def _launches() -> dict:
+    """Every kernel's launches so far: K1 and K2, then K3."""
+    return {**tip5_cuda.launches, **quotient_cuda.launches}
+
+
 def _ramp(device) -> float:
-    """Create the CUDA context and build the Tip5 kernels; their seconds
-    (0 on the CPU, where the kernels' plain versions run)."""
+    """Create the CUDA context and build the Tip5 kernels and K3; their
+    seconds (0 on the CPU, where the kernels' plain versions run)."""
     if device.type != "cuda":
         return 0.0
     t0 = time.perf_counter()
     torch.empty(1, device=device)
     _sync(device)
     tip5_cuda.load()
+    quotient_cuda.load()
     return time.perf_counter() - t0
 
 
@@ -301,7 +308,7 @@ def _bench(run, which, device):
              .with_input(public_input).with_output(output))
 
     run.phase = "cold_prove"
-    launches0 = dict(tip5_cuda.launches)
+    launches0 = _launches()
     cold_s, proof, cold = _prove(stark, claim, aet, "cold prove " + which)
     timings = dict(cold_prove_s=round(cold_s, 3), ramp_s=round(ramp_s, 1))
     run.emit(result_line(which, cold_s, partial=True, **timings))
@@ -321,14 +328,13 @@ def _bench(run, which, device):
         stages = {name: round(s, 3) for name, s, _ in report.spans()}
         run.emit(result_line(which, warm_s, stages=stages, **timings))
 
-    sol_launches = dict.fromkeys(tip5_cuda.launches, 0)
+    sol_launches = dict.fromkeys(launches0, 0)
     if os.environ.get("TVM_BENCH_SOL") == "1" and run.fits(60.0, 20.0):
         run.phase = "sol"
-        before = dict(tip5_cuda.launches)
+        before = _launches()
         peak = float(os.environ.get("TVM_HBM_GBPS", HBM_GBPS))
         figures = sol(dev, peak_gbps=peak)
-        sol_launches = {k: v - before[k]
-                        for k, v in tip5_cuda.launches.items()}
+        sol_launches = {k: v - before[k] for k, v in _launches().items()}
         run.emit(dict(run.line, sol=figures))
 
     if run.fits(30.0, 10.0):
@@ -340,7 +346,7 @@ def _bench(run, which, device):
             run.line = dict(run.line, verify_s=round(verify_s, 3))
     run.emit(run.line, final=True)
     launches = {k: v - launches0[k] - sol_launches[k]
-                for k, v in tip5_cuda.launches.items()}
+                for k, v in _launches().items()}
     print(f"bench {which} kernel launches (proves and verify): "
           f"{json.dumps(launches)}", file=sys.stderr, flush=True)
 

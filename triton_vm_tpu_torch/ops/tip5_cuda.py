@@ -68,14 +68,15 @@ def _nvcc() -> str:
 
 
 def build(src: Path = _SRC) -> Path:
-    """Compile `src` (csrc/tip5.cu; tools/tip5_probe.py names other
-    copies of it to time them in turns), if no library for this source
-    exists yet, and return the library's path. ptxas's report (-v) is
-    kept beside it, see `ptxas_report`."""
+    """Compile `src` (csrc/tip5.cu by default, csrc/quotient.cu for
+    ops/quotient_cuda.py; tools/tip5_probe.py names other copies of
+    tip5.cu to time them in turns), if no library for this source exists
+    yet, and return the library's path, lib<stem>_<hash>.so. ptxas's
+    report (-v) is kept beside it, see `ptxas_report`."""
     src = Path(src)
     tag = hashlib.sha256(src.read_bytes()
                          + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"libtip5_{tag}.so"
+    so = _BUILD_DIR / f"lib{src.stem}_{tag}.so"
     if so.exists():
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -90,17 +91,18 @@ def build(src: Path = _SRC) -> Path:
     return so
 
 
-def ptxas_report(so: Path | None = None) -> dict:
-    """Per kernel of a built library (the current source's by default):
-    registers a thread, spill stores and loads, stack and static shared
-    memory in bytes, as ptxas -v reported them at the build."""
+def ptxas_report(so: Path | None = None, kernels=KERNELS) -> dict:
+    """Per kernel named in `kernels` of a built library (the current
+    Tip5 source's by default): registers a thread, spill stores and
+    loads, stack and static shared memory in bytes, as ptxas -v reported
+    them at the build."""
     text = Path(so or build()).with_suffix(".ptxas.txt").read_text()
     out, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
-            cur = next((k for k in KERNELS if k in m.group(1)), None)
+            cur = next((k for k in kernels if k in m.group(1)), None)
             continue
         if cur is None:
             continue

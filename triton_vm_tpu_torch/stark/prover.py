@@ -8,8 +8,9 @@ of `triton_vm_tpu.stark.prover`, whose proof words it reproduces.
 Compute placement: the derived main columns, the aux extension
 (tables/extend_device.py), LDE (cached, or coset by coset where the
 committed codewords would not fit: stark/jit_lde.py), row hashing and
-Merkle trees, the quotient tapes (air/compile.py), out-of-domain rows, the
-DEEP combination and the low-degree test (FRI or STIR) run on the
+Merkle trees, the quotient tapes (on a card K3, ops/quotient_cuda.py,
+over the row tape of air/compile.py), out-of-domain rows, the DEEP
+combination and the low-degree test (FRI or STIR) run on the
 prover's device (a CUDA card unless the caller asks for the CPU); the
 main table's fill from the execution trace, Fiat-Shamir and randomness
 are on the host. The host <-> device boundary is numpy uint64 <-> int64
@@ -40,7 +41,7 @@ from ..fields import bfe, xfe
 from ..fields.bfe import P
 from ..ldt.fri import Fri, FriParameters
 from ..ldt.stir import Stir, StirParameters
-from ..ops import gf, gfx, kernels, ntt, tip5_kernel
+from ..ops import gf, gfx, kernels, ntt, quotient_cuda, tip5_kernel
 from ..parallel import mesh as pmesh
 from ..parallel import sharding
 from ..tables import extend_device
@@ -88,8 +89,8 @@ NUM_DEEP_CODEWORD_COMPONENTS = 4
 NUM_MAIN = 379
 NUM_AUX = 91
 ZETA = 3
-# Above this many quotient-domain rows, evaluate quotients in row chunks:
-# the tape banks are O(num_slots x chunk) of device memory.
+# Above this many quotient-domain rows, the CPU's level tape evaluates
+# quotients in row chunks: its banks are O(num_slots x chunk) of memory.
 _QUOTIENT_CHUNK_ROWS = 1 << 16
 
 
@@ -973,14 +974,20 @@ def _quotients_on_domain(main, aux, dom, shift, trace_dom, ch, ws):
 
 def _quotients_on_rows(main, aux, xs, shift, trace_dom, ch, ws):
     """The combined quotient at the N points xs from the committed values
-    in the first N columns of main int64 (NM, M) and aux XFE (3, NA, M),
-    in chunks of _QUOTIENT_CHUNK_ROWS rows; row i's next row is row
-    (i + shift) % M: the whole domain cyclically where M = N, a shard's
-    block followed by its halo where M = N + shift (parallel/mesh.py).
-    Returns XFE (3, N)."""
+    in the first N columns of main int64 (NM, M) and aux XFE (3, NA, M);
+    row i's next row is row (i + shift) % M: the whole domain cyclically
+    where M = N, a shard's block followed by its halo where M = N + shift
+    (parallel/mesh.py). On a card one launch of K3 over the row tape
+    (ops/quotient_cuda.py) reads main and aux in place; on the CPU the
+    level tape runs in chunks of _QUOTIENT_CHUNK_ROWS rows. Returns XFE
+    (3, N)."""
     dev = main.device
     N, M = xs.shape[0], main.shape[1]
     gen_inv = bfe.inv(trace_dom.generator)
+    if dev.type == "cuda":
+        return quotient_cuda.quotients_on_rows(
+            aircomp.quotient_row_tape(), main, aux, xs, shift,
+            trace_dom.length, gen_inv, ch, torch.cat(ws, dim=1))
     C_ = min(N, _QUOTIENT_CHUNK_ROWS)
     out = torch.empty((3, N), dtype=torch.int64, device=dev)
     for s in range(0, N, C_):
@@ -996,7 +1003,8 @@ def _quotients_on_rows(main, aux, xs, shift, trace_dom, ch, ws):
 def _all_quotients_combined_device(main_q, aux_q, trace_dom, quot_dom,
                                    challenges, quot_weights):
     """master_table.rs:1264-1363 on tensors: run the compiled AIR tapes
-    over the quotient domain, in chunks of _QUOTIENT_CHUNK_ROWS rows, and
+    over the quotient domain (K3 on a card, the level tape in chunks of
+    _QUOTIENT_CHUNK_ROWS rows on the CPU: `_quotients_on_rows`) and
     combine with the weights and zerofier inverses.
 
     main_q: int64 (NM, Q); aux_q: XFE (3, NA, Q). Returns XFE (3, Q)."""

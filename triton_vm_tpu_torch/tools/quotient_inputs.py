@@ -1,0 +1,97 @@
+"""Inputs and oracles for K3 (csrc/quotient.cu) on the card: random rows
+at the master AIR's full widths (379 main, 91 aux columns), K3's plain
+version over them, and the level tape over them (the CPU path's
+`_quotient_chunk_fn`). chip_smoke.py's kernels phase and the card-only
+cases of tests/test_torch_cuda.py hold K3 against both with these.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..air import compile as aircomp
+from ..fields import bfe
+from ..fields.bfe import P
+from ..ops import gf, quotient_cuda
+
+NUM_MAIN, NUM_AUX, NUM_CHALLENGES = 379, 91, 63
+EDGE = (0, 1, P - 1, 2**32)
+
+
+def make_inputs(rng, n, device, *, halo=0, shift=4, permuted_aux=False,
+                edge=False, log2_trace=10, device_draw=False):
+    """Keyword arguments of `quotients_on_rows` (all but the tape) for n
+    random rows at the master AIR's widths: main (379, M), aux (3, 91, M)
+    with M = n + halo (a mesh shard's block and halo, next rows `halo`
+    ahead) or M = n (next rows `shift` ahead, cyclically), aux as a permuted
+    view of (91, 3, M) storage if asked, every column cycling through 0, 1,
+    p - 1 and 2^32 with `edge`; random points xs, a trace domain of
+    2^log2_trace rows, random challenges and weights. With `device_draw`
+    main and aux are drawn on `device` (torch's generator, seeded from
+    rng), for sizes the host should not draw: words below 2^63, canonical
+    as drawn (K3's arithmetic does not branch on the data)."""
+    m = n + halo
+    if device_draw:
+        gen = torch.Generator(device).manual_seed(int(rng.integers(1 << 62)))
+
+        def draw(shape):
+            return torch.randint(0, 2**63 - 1, shape, dtype=torch.int64,
+                                 device=device, generator=gen)
+    else:
+        def draw(shape):
+            return gf.from_u64(rng.integers(0, P, shape, dtype=np.uint64),
+                               device)
+    if edge:
+        pattern = np.array(EDGE, np.uint64)
+        main = gf.from_u64(pattern[(np.arange(NUM_MAIN)[:, None]
+                                    + np.arange(m)) % 4], device)
+        aux = gf.from_u64(pattern[(np.arange(3 * NUM_AUX)[:, None]
+                                   + np.arange(m)) % 4], device)
+    else:
+        main, aux = draw((NUM_MAIN, m)), draw((3 * NUM_AUX, m))
+    if permuted_aux:
+        aux = aux.view(NUM_AUX, 3, m).permute(1, 0, 2)
+    else:
+        aux = aux.view(3, NUM_AUX, m)
+    trace_len = 1 << log2_trace
+    return dict(
+        main=main, aux=aux,
+        xs=gf.from_u64(rng.integers(0, P, n, dtype=np.uint64), device),
+        shift=halo or shift, trace_len=trace_len,
+        gen_inv=bfe.inv(bfe.primitive_root_of_unity(trace_len)),
+        ch=gf.from_u64(rng.integers(0, P, (3, NUM_CHALLENGES),
+                                    dtype=np.uint64), device),
+        ws=gf.from_u64(rng.integers(
+            0, P, (3, aircomp.quotient_row_tape().num_weights),
+            dtype=np.uint64), device))
+
+
+def level_tape(inp, start=0, stop=None):
+    """The CPU path's level tape over rows start .. stop - 1 of the same
+    inputs (the rows and their next rows gathered by index_select, as the
+    prover's chunk loop does)."""
+    from ..air.master import master_air
+    from ..stark import prover
+
+    main, aux, xs = inp["main"], inp["aux"], inp["xs"]
+    stop, m = xs.shape[0] if stop is None else stop, main.shape[1]
+    idx = torch.arange(start, stop, device=main.device)
+    nidx = (idx + inp["shift"]) % m
+    cuts = np.cumsum([0] + [len(master_air().constraints[ph])
+                            for ph in aircomp.PHASES])
+    ws = [inp["ws"][:, a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    return prover._quotient_chunk_fn(
+        main.index_select(1, idx), aux.index_select(2, idx),
+        main.index_select(1, nidx), aux.index_select(2, nidx), inp["ch"], ws,
+        xs[start:stop], inp["trace_len"], inp["gen_inv"])
+
+
+def k3(inp):
+    return quotient_cuda.quotients_on_rows(aircomp.quotient_row_tape(),
+                                           **inp)
+
+
+def plain(inp):
+    return quotient_cuda.quotients_on_rows_plain(
+        aircomp.quotient_row_tape(), **inp)
