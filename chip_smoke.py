@@ -10,9 +10,9 @@ Phases, in order (`--phases` names in brackets); any failure exits
 non-zero and prints no result line:
 
 1. versions, the card's name and power limit, the build of both Tip5
-   kernels and of K3 from csrc/ (the two nvcc runs started together,
-   seconds printed) and ptxas's report for each kernel (registers,
-   spills, stack, shared memory);
+   kernels, of K3 and of K4 from csrc/ (the three nvcc runs started
+   together, seconds printed) and ptxas's report for each kernel
+   (registers, spills, stack, shared memory);
 2. [kernels] K1 (Tip5 permutation) against its plain torch version on
    the card (2^18 random states, edge-value states, the MDS's worst-case
    states, a ragged 2^18 + 3 batch) and 8 states against the host
@@ -35,6 +35,14 @@ non-zero and prints no result line:
    launch shape (2^13 to 2^22 rows) and summed per prove, and held
    against the level tape over every row of a 2^20 prove's 2^21-row JIT
    coset (its next-row shift, aux a permuted view);
+3c. [kernels] K4 (the Goldilocks NTT, csrc/ntt.cu) against its plain
+   version (the scales as gf.mul and the radix-2 network
+   `ntt._transform_plain`) at every launch class: Bezout-style short
+   batches (8192 rows of 2 words to 64 of 2^12, zero-padded), 379 and
+   273 rows of 2^13 to 2^21 words with a coset offset, 3 and 15 rows of
+   2^22 to 2^24 words, an iNTT with its scale, `lde` with padding, a
+   ragged 1001 rows; each timed with its bound, the plain version timed
+   at the 379 x 2^21 coset of a 2^20 prove;
 4. [fib_1024] the main path on the card: `prove_program` on fibonacci
    input 85 (padded height 2^10, FRI) with seed bytes(range(32)), the
    proof digest held against the JAX package's, `Stark.verify` accepting
@@ -133,15 +141,18 @@ each proving path, so one path's cached blocks move neither the next
 one's cache decision nor its peak. The launch counts of the kernels are
 set to 0 just before each proving path (phases 4-13) and read just after
 it (the bench's process starts from 0 and prints the launches of its
-proves and verify, its speed-of-light pass left out); all three must be
+proves and verify, its speed-of-light pass left out); all four must be
 above 0 on every path, and every prove but fib_1024's,
 fib_1024_stir's and the mesh's (which counts its own) must launch K1
 once per Merkle layer, K2 once per committed table (once per hashed
 coset of the main and aux tables on the JIT path) and STIR tree, and K3
 once (once per coset on the JIT path), as the per-prove totals assume.
-While a path proves, the quotient stage's level-tape chunk function and
-K3's plain versions raise if handed a tensor on the card (the derived
-columns' fill still runs `run_tape_scan` there). The line before the last
+While a path proves, the quotient stage's level-tape chunk function,
+K3's plain versions and the NTT's plain network raise if handed a tensor
+on the card (the derived columns' fill still runs `run_tape_scan` there),
+and K4's calls are recorded by shape; after the paths, K4 is timed at
+every shape they called it with and summed per path (K4 launches once a
+pass: twice a transform above 2^12 words). The line before the last
 is a JSON object with each kernel's numbers (launches summed over every
 path, config 5's inner proof and build and the bench's proves included);
 the last line is the device record. Needs one card, no network; imports
@@ -294,6 +305,12 @@ SOURCE = "triton_vm_tpu_torch/csrc/tip5.cu"
 SOURCE_K3 = "triton_vm_tpu_torch/csrc/quotient.cu"
 # K3 has no Pallas counterpart: the JAX package jits the same function
 K3_REPLACES = "triton_vm_tpu/stark/prover.py:1185"
+SOURCE_K4 = "triton_vm_tpu_torch/csrc/ntt.cu"
+# neither has K4: the JAX package computes the transform with XLA
+K4_REPLACES = "triton_vm_tpu/ops/ntt.py:70"
+# K4's call shapes on each proving path of this run, by path: Counter of
+# (rows, n_in, length, input scaled, output scaled)
+K4_CALLS = {}
 
 
 def log(msg):
@@ -430,24 +447,26 @@ class Bound:
 
 
 def phase_build():
-    """Build every kernel (both sources' nvcc runs started together);
+    """Build every kernel (the three sources' nvcc runs started together);
     returns ptxas's report for each (registers, spills, stack and shared
     memory)."""
     import torch
 
-    from triton_vm_tpu_torch.ops import quotient_cuda, tip5_cuda
-
+    tip5_cuda, quotient_cuda, ntt_cuda = kernel_modules()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     log(f"device: {torch.cuda.get_device_name(0)} "
         f"(count {torch.cuda.device_count()})")
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         k3 = pool.submit(quotient_cuda.load)
+        k4 = pool.submit(ntt_cuda.load)
         secs = tip5_cuda.load()
-        k3_secs = k3.result()
+        k3_secs, k4_secs = k3.result(), k4.result()
     log(f"built Tip5 kernels from {SOURCE} in {secs:.1f} s, K3 from "
-        f"{SOURCE_K3} in {k3_secs:.1f} s (both builds started together)")
-    report = {**tip5_cuda.ptxas_report(), **quotient_cuda.ptxas_report()}
+        f"{SOURCE_K3} in {k3_secs:.1f} s, K4 from {SOURCE_K4} in "
+        f"{k4_secs:.1f} s (the three builds started together)")
+    report = {**tip5_cuda.ptxas_report(), **quotient_cuda.ptxas_report(),
+              **ntt_cuda.ptxas_report()}
     for name, rec in report.items():
         log(f"ptxas {name}: {json.dumps(rec)}")
     return report
@@ -811,47 +830,226 @@ def phase_k3(rng, bound):
                 per_prove_bound_ms={k: b for k, (_, b) in per_prove.items()})
 
 
-def all_launches():
-    """Every kernel's launches so far: K1, K2 and K3."""
-    from triton_vm_tpu_torch.ops import quotient_cuda, tip5_cuda
+K4_HEADLINE = (379, 1 << 21, 1 << 21, True, False)
 
-    return {**tip5_cuda.launches, **quotient_cuda.launches}
+
+def k4_inputs(rows, n_in, length, scaled_in, scaled_out, device_draw=False,
+              rng=None):
+    """Inputs of one K4 call of shape (rows, n_in) -> (rows, length): the
+    words (numpy-drawn over all of [0, p), or drawn on the card below
+    2^62 for the large shapes) and the root, input scale and output scale
+    that ops/ntt.py passes for a coset NTT (offset 7) or an iNTT (offset
+    7, root inverted)."""
+    import torch
+
+    from triton_vm_tpu_torch.fields import bfe
+    from triton_vm_tpu_torch.ops import gf, ntt
+
+    if device_draw:
+        g = torch.Generator("cuda").manual_seed(rows * 131 + length)
+        x = torch.randint(0, 1 << 62, (rows, n_in), dtype=torch.int64,
+                          device="cuda", generator=g)
+    else:
+        x = gf.from_u64(random_field(rng, (rows, n_in)), "cuda")
+    root = bfe.primitive_root_of_unity(length)
+    if scaled_out:
+        root = bfe.inv(root)
+    pre = ntt._coset_scale(n_in, 7, "cuda") if scaled_in else None
+    post = ntt._unscale(length, 7, "cuda") if scaled_out else None
+    return x, root, length, pre, post
+
+
+def k4_shape_label(rows, n_in, length, scaled_in, scaled_out):
+    pad = "" if n_in == length else f" from 2^{n_in.bit_length() - 1}"
+    kind = "intt" if scaled_out else ("coset" if scaled_in else "ntt")
+    return f"{rows}x2^{length.bit_length() - 1}{pad} {kind}"
+
+
+def k4_time(shape, bound, reps=None):
+    """K4's milliseconds (CUDA events) and bound at one call shape."""
+    from triton_vm_tpu_torch.ops import ntt_cuda
+
+    rows, n_in, length, scaled_in, scaled_out = shape
+    x, root, length, pre, post = k4_inputs(*shape, device_draw=True)
+    out = ntt_cuda.ntt_rows(x, root, length, pre, post)
+    words = rows * length
+    reps = reps or (3 if words >= 1 << 26 else 10 if words >= 1 << 20
+                    else 50)
+    ms = time_ms(lambda: ntt_cuda.ntt_rows(x, root, length, pre, post,
+                                           out=out), reps)
+    scaled = (n_in if scaled_in else 0) + (length if scaled_out else 0)
+    return (ms, *bound.ops(*ntt_cuda.work(rows, n_in, length, scaled)))
+
+
+def phase_k4(rng, bound):
+    """K4 (csrc/ntt.cu) on the card, word for word against its plain
+    version (`ntt._rows_plain`: the scales as gf.mul, then
+    `_transform_plain`) at every launch class the provers make: Bezout
+    products' short batches (many rows, lengths 2 to 2^12, zero-padded
+    from half), the commit and JIT cosets (2^13 to 2^21 words of 379 and
+    273 rows with a coset offset), the tall columns of segmentify and
+    STIR (2^22 to 2^24 words, 3 and 15 rows), an iNTT with its offset^-i /
+    n scale, `lde` with padding, and a ragged row count; each input drawn
+    over all of [0, p) with numpy (below 2^62 on the card from 2^26
+    words), its first words edge values. The plain version is timed at
+    the JIT coset of a 2^20 prove (379 x 2^21, offset), K4 at every shape
+    it was held at."""
+    import torch
+
+    from triton_vm_tpu_torch.fields import bfe
+    from triton_vm_tpu_torch.fields.bfe import P
+    from triton_vm_tpu_torch.ops import gf, ntt, ntt_cuda
+
+    edge = [0, 1, 2**32 - 1, 2**32, 2**63, P - 2**32, P - 2, P - 1]
+    classes = [(8192, 1, 2, False, False), (4096, 16, 32, False, False),
+               (1024, 128, 256, False, False), (64, 2048, 4096, False, False),
+               (1, 1 << 15, 1 << 16, False, False),
+               (379, 1 << 13, 1 << 13, True, False),
+               (1001, 1 << 13, 1 << 13, True, False),
+               (273, 1 << 16, 1 << 17, True, False),
+               (379, 1 << 19, 1 << 19, True, False),
+               (273, 1 << 21, 1 << 21, True, False), K4_HEADLINE,
+               (379, 1 << 20, 1 << 20, False, True),
+               (3, 1 << 22, 1 << 22, False, True),
+               (15, 1 << 23, 1 << 23, True, False),
+               (3, 1 << 24, 1 << 24, False, True),
+               (15, 1 << 24, 1 << 24, True, False)]
+    by_shape, plain_ms = {}, None
+    for shape in classes:
+        x, root, length, pre, post = k4_inputs(
+            *shape, device_draw=shape[0] * shape[1] >= 1 << 26, rng=rng)
+        x.view(-1)[:len(edge)] = torch.as_tensor(
+            [e - (1 << 64) if e >= 1 << 63 else e for e in edge][:x.numel()],
+            device="cuda")
+        got = ntt._rows(x, root, length, pre, post)
+        if shape == K4_HEADLINE:
+            t0 = time.perf_counter()
+        want = ntt._blockwise(
+            lambda b, o: o.copy_(ntt._rows_plain(b, root, length, pre, post)),
+            x, length, gf.block_rows(length))
+        if shape == K4_HEADLINE:
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"K4 disagrees with its plain version at "
+                                 f"{k4_shape_label(*shape)}: {err}")
+        del x, got, want, pre, post
+        by_shape[shape] = k4_time(shape, bound)
+        torch.cuda.empty_cache()
+    # lde with padding: the bench's SOL shape, K4 twice (iNTT, coset NTT)
+    x = gf.from_u64(random_field(rng, (379, 4096)), "cuda")
+    got = ntt.lde(x, 4, 1, 7)
+    want = ntt._rows_plain(
+        ntt._rows_plain(x, bfe.inv(bfe.primitive_root_of_unity(4096)),
+                        4096, None, ntt._unscale(4096, 1, "cuda")),
+        bfe.primitive_root_of_unity(1 << 14), 1 << 14,
+        ntt._coset_scale(4096, 7, "cuda"))
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"K4's lde disagrees with its plain version: "
+                             f"{err}")
+    lde_ms = time_ms(lambda: ntt.lde(x, 4, 1, 7), 20)
+    del x, got, want
+    # the scale, twiddle and bit-reversal tables built here for shapes a
+    # prove may never use (2^24 words, the plain network's) would stay
+    # allocated and count in the proves' peak device memory
+    ntt._DEVICE_CACHE.clear()
+    ntt_cuda._TABLES.clear()
+    torch.cuda.empty_cache()
+    for shape, (ms, bms, by) in by_shape.items():
+        log(f"K4 {k4_shape_label(*shape)}: {ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}), {100 * bms / ms:.1f}% of it")
+    ms, bound_ms, bound_by = by_shape[K4_HEADLINE]
+    log(f"K4 ok (max_abs_err 0 at {len(classes)} classes and lde 379 x 2^12 "
+        f"by 4, {lde_ms:.4f} ms); 379 x 2^21 coset: kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(name="ntt_pass", route="cuda", source=SOURCE_K4,
+                replaces=K4_REPLACES, max_abs_err=0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, lde_ms=lde_ms,
+                ms_by_shape={k4_shape_label(*s): v[0]
+                             for s, v in by_shape.items()},
+                bound_ms_by_shape={k4_shape_label(*s): v[1]
+                                   for s, v in by_shape.items()})
+
+
+def k4_per_prove(calls, bound, k4):
+    """K4 timed at every call shape the proving paths made (`calls`: path
+    -> Counter of shapes) and summed per prove: each path's milliseconds
+    and bound, written into the kernels line's K4 record `k4` (when the
+    kernels phase ran)."""
+    import torch
+
+    timed = {}
+    per_prove = {}
+    for path, shapes in calls.items():
+        ms = bms = 0.0
+        for shape, count in shapes.items():
+            if shape not in timed:
+                timed[shape] = k4_time(shape, bound)
+                torch.cuda.empty_cache()
+            ms += count * timed[shape][0]
+            bms += count * timed[shape][1]
+        per_prove[path] = (ms, bms, sum(shapes.values()))
+        log(f"K4 per {path} path ({sum(shapes.values())} calls, "
+            f"{len(shapes)} shapes): {ms:.3f} ms, bound {bms:.3f} ms")
+    top = sorted(timed.items(), key=lambda kv: -kv[1][0])[:12]
+    log("K4 at the provers' widest shapes (ms, bound ms): " + json.dumps(
+        {k4_shape_label(*s): [round(v[0], 4), round(v[1], 4)]
+         for s, v in top}))
+    if k4 is not None:
+        k4["per_prove_ms"] = {p: v[0] for p, v in per_prove.items()}
+        k4["per_prove_bound_ms"] = {p: v[1] for p, v in per_prove.items()}
+        k4["per_prove_calls"] = {p: v[2] for p, v in per_prove.items()}
+
+
+def kernel_modules():
+    """The wrappers of K1 and K2, K3 and K4."""
+    from triton_vm_tpu_torch.ops import ntt_cuda, quotient_cuda, tip5_cuda
+
+    return tip5_cuda, quotient_cuda, ntt_cuda
+
+
+def all_launches():
+    """Every kernel's launches so far: K1, K2, K3 and K4 (one a pass)."""
+    return {k: n for m in kernel_modules() for k, n in m.launches.items()}
 
 
 def launches_by_device():
     """Every kernel's launches so far by the card it launched on."""
-    from triton_vm_tpu_torch.ops import quotient_cuda, tip5_cuda
-
     out = {}
-    for counts in (tip5_cuda.launches_by_device,
-                   quotient_cuda.launches_by_device):
-        for d, c in counts.items():
+    for m in kernel_modules():
+        for d, c in m.launches_by_device.items():
             out.setdefault(d, dict.fromkeys(all_launches(), 0)).update(c)
     return out
 
 
 def reset_launch_counts():
-    from triton_vm_tpu_torch.ops import quotient_cuda, tip5_cuda
-
-    tip5_cuda.reset_launch_counts()
-    quotient_cuda.reset_launch_counts()
+    for m in kernel_modules():
+        m.reset_launch_counts()
 
 
 @contextlib.contextmanager
-def quotients_through_k3():
+def through_kernels():
     """While a path proves: the quotient stage's level-tape chunk function
-    (`prover._quotient_chunk_fn`) and K3's plain versions raise if they
-    are handed a tensor on the card, so every prove's quotient stage must
-    go through K3. `run_tape_scan` itself is not guarded: the derived
-    columns' fill (tables/extend_device.py) still runs it on the card."""
-    from triton_vm_tpu_torch.ops import quotient_cuda
+    (`prover._quotient_chunk_fn`), K3's plain versions and the NTT's plain
+    network (`ntt._transform_plain`) raise if they are handed a tensor on
+    the card, so every prove's quotient stage must go through K3 and every
+    transform through K4; K4's calls are recorded by shape (yielded, a
+    Counter). `run_tape_scan` itself is not guarded: the derived columns'
+    fill (tables/extend_device.py) still runs it on the card."""
+    from triton_vm_tpu_torch.ops import ntt, ntt_cuda, quotient_cuda
     from triton_vm_tpu_torch.stark import prover
 
     saved = {(prover, "_quotient_chunk_fn"): prover._quotient_chunk_fn,
              (quotient_cuda, "quotients_on_rows_plain"):
                  quotient_cuda.quotients_on_rows_plain,
              (quotient_cuda, "run_row_tape_plain"):
-                 quotient_cuda.run_row_tape_plain}
+                 quotient_cuda.run_row_tape_plain,
+             (ntt, "_transform_plain"): ntt._transform_plain,
+             (ntt_cuda, "ntt_rows"): ntt_cuda.ntt_rows}
+    calls = collections.Counter()
 
     def guard(name, fn):
         def guarded(*args, **kwargs):
@@ -860,10 +1058,14 @@ def quotients_through_k3():
             return fn(*args, **kwargs)
         return guarded
 
+    def recorded(x, root, length, pre=None, post=None, out=None):
+        calls[(*x.shape, length, pre is not None, post is not None)] += 1
+        return saved[ntt_cuda, "ntt_rows"](x, root, length, pre, post, out)
+
     for (mod, name), fn in saved.items():
-        setattr(mod, name, guard(name, fn))
+        setattr(mod, name, recorded if mod is ntt_cuda else guard(name, fn))
     try:
-        yield
+        yield calls
     finally:
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
@@ -1164,11 +1366,13 @@ def drive_path(name, proofs):
     launched. `proofs` holds the proofs of this run by path name
     (spin_65536_jit is held against spin_65536's) and config 5's built
     verifier core (the witness phase reuses it). Every prove's quotient
-    stage must run K3 (`quotients_through_k3`). Returns the counts."""
+    stage must run K3 and every transform K4 (`through_kernels`); K4's
+    call shapes go to K4_CALLS[name]. Returns the counts."""
     reset_launch_counts()
     t0 = time.perf_counter()
-    with quotients_through_k3():
+    with through_kernels() as calls:
         drive_proofs(name, proofs)
+    K4_CALLS[name] = calls
     counts = all_launches()
     log(f"{name} kernel launches, prove and verify: {json.dumps(counts)}")
     log(f"{name} path: {time.perf_counter() - t0:.3f} s")
@@ -1690,7 +1894,7 @@ def main(argv=None):
              else None)
     if "kernels" in phases:
         kernels = [phase_k1(rng, bound), phase_k2(rng, bound),
-                   phase_k3(rng, bound)]
+                   phase_k3(rng, bound), phase_k4(rng, bound)]
     if "recursive_verifier_full" in phases:
         full = phase_kernels_full(rng, bound)
         if not kernels:
@@ -1732,6 +1936,8 @@ def main(argv=None):
         if launches:
             log(f"kernel launches on the main path, all paths: "
                 f"{json.dumps(launches)}")
+            k4_per_prove(K4_CALLS, bound or Bound(), next(
+                (k for k in kernels if k["name"] == "ntt_pass"), None))
         if "witness" in phases:
             if "config 5 queries" not in pending:
                 pending.update(submit_config5_witness(pool, config5(1)))

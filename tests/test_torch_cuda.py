@@ -263,3 +263,52 @@ def test_quotient_kernel_refuses_what_it_cannot_take(cuda):
         qi.k3(dict(inp, main=inp["main"][:100]))
     with pytest.raises(ValueError, match="power of two"):
         qi.k3(dict(inp, trace_len=6))
+
+
+@pytest.mark.parametrize("rows,n_in,length,inverse", [
+    (4096, 16, 32, False), (1001, 1 << 12, 1 << 12, False),
+    (379, 1 << 13, 1 << 14, False), (3, 1 << 20, 1 << 20, True),
+    (15, 1 << 22, 1 << 22, False)])
+def test_ntt_kernel_matches_plain(cuda, rows, n_in, length, inverse):
+    """K4 (csrc/ntt.cu) against its plain version, word for word: short
+    zero-padded batches, one pass, two passes, an iNTT with its scale, a
+    coset offset on the load."""
+    from triton_vm_tpu_torch.fields import bfe
+    from triton_vm_tpu_torch.ops import ntt, ntt_cuda
+
+    x = gf.from_u64(_field(rows, (rows, n_in)), cuda)
+    if inverse:
+        root = bfe.inv(bfe.primitive_root_of_unity(length))
+        pre, post = None, ntt._unscale(length, 7, cuda)
+    else:
+        root = bfe.primitive_root_of_unity(length)
+        pre, post = ntt._coset_scale(n_in, 7, cuda), None
+    assert torch.equal(ntt_cuda.ntt_rows(x, root, length, pre, post),
+                       ntt._rows_plain(x, root, length, pre, post))
+
+
+def test_ntt_on_the_card_equals_cpu(cuda):
+    """ntt, intt, lde and a zero-padded ntt of an XFE batch (2, 3, 2^13):
+    K4 on the card, the plain version on the CPU."""
+    from triton_vm_tpu_torch.ops import ntt
+
+    a = _field(9, (2, 3, 1 << 13))
+    for fn, args in ((ntt.ntt, (7,)), (ntt.intt, (7,)),
+                     (ntt.lde, (4, 1, 7)), (ntt.ntt, (7, 1 << 14))):
+        assert torch.equal(fn(gf.from_u64(a, cuda), *args).cpu(),
+                           fn(gf.from_u64(a), *args))
+
+
+def test_ntt_kernel_refuses_what_it_cannot_take(cuda):
+    from triton_vm_tpu_torch.fields import bfe
+    from triton_vm_tpu_torch.ops import ntt_cuda
+
+    root = bfe.primitive_root_of_unity(64)
+    x = torch.zeros((4, 64), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ntt_cuda.ntt_rows(torch.zeros((64, 4), dtype=torch.int64,
+                                      device=cuda).T, root, 64)
+    with pytest.raises(ValueError, match="power of two"):
+        ntt_cuda.ntt_rows(x, root, 96)
+    with pytest.raises(ValueError, match="overlaps"):
+        ntt_cuda.ntt_rows(x, root, 64, out=x)

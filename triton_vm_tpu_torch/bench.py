@@ -18,9 +18,10 @@ printed after the cold prove, `incomplete` and `phase_reached` the
 watchdog's line when the budget runs out before any prove ended.
 
 Phases:
-1. ramp: the CUDA context is created and the Tip5 kernels and K3, the
-   quotient kernel, are built (`tip5_cuda.load`, `quotient_cuda.load`)
-   before the timed window; `ramp_s` is their seconds;
+1. ramp: the CUDA context is created and the Tip5 kernels, K3 (the
+   quotient) and K4 (the NTT) are built (`tip5_cuda.load`,
+   `quotient_cuda.load`, `ntt_cuda.load`) before the timed window;
+   `ramp_s` is their seconds;
 2. witness: the config (`models/baseline.config`; config 5 proves its
    inner proof here, on the same device) and its execution trace;
 3. cold prove, the process's first: it builds the AIR (the `setup` span)
@@ -42,7 +43,7 @@ verify. A watchdog prints the best line known (or an `incomplete` one)
 15 s before TVM_BENCH_BUDGET_S (default 540) seconds have passed since
 `main` began, and phases that the rest of the budget cannot hold are
 skipped. Any error ends the process non-zero, watchdog line or not.
-On stderr: the card, and the kernel launches (K1, K2 and K3) of the
+On stderr: the card, and the kernel launches (K1, K2, K3 and K4) of the
 proves and the verify; with TVM_PROFILE=1 also the cold and the warm
 prove's profiler reports.
 Environment variables are read by `main`, never at import.
@@ -62,7 +63,7 @@ import torch
 
 from .fields.bfe import P
 from .models import baseline
-from .ops import gf, ntt, quotient_cuda, tip5_cuda
+from .ops import gf, ntt, ntt_cuda, quotient_cuda, tip5_cuda
 from .stark.proof_stream import Claim
 from .stark.prover import Stark
 from .utils import profiler
@@ -178,12 +179,13 @@ def _timed(device, fn):
 
 
 def _launches() -> dict:
-    """Every kernel's launches so far: K1 and K2, then K3."""
-    return {**tip5_cuda.launches, **quotient_cuda.launches}
+    """Every kernel's launches so far: K1 and K2, K3, then K4."""
+    return {**tip5_cuda.launches, **quotient_cuda.launches,
+            **ntt_cuda.launches}
 
 
 def _ramp(device) -> float:
-    """Create the CUDA context and build the Tip5 kernels and K3; their
+    """Create the CUDA context and build the Tip5 kernels, K3 and K4; their
     seconds (0 on the CPU, where the kernels' plain versions run)."""
     if device.type != "cuda":
         return 0.0
@@ -192,6 +194,7 @@ def _ramp(device) -> float:
     _sync(device)
     tip5_cuda.load()
     quotient_cuda.load()
+    ntt_cuda.load()
     return time.perf_counter() - t0
 
 

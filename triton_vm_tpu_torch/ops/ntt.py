@@ -1,15 +1,22 @@
 """NTT, iNTT and coset low-degree extension over Goldilocks, on tensors.
 
 Transforms run along the last axis and batch over every leading axis
-(columns, and the 3 coefficients of an XFE tensor). The algorithm is the
-textbook iterative radix-2 network: a bit-reversal gather, then log2(n)
-butterfly stages over a (..., blocks, 2, half) view. Any correct
-transform gives the same field elements as `triton_vm_tpu.ops.ntt`
-(tests/test_torch_ntt.py).
+(columns, and the 3 coefficients of an XFE tensor). Every transform goes
+through one dispatch point, `_rows`: a tensor on the card launches K4, the
+hand-written kernel of csrc/ntt.cu (ops/ntt_cuda.py), with the coset scale
+and the zero-padding fused into its load and the iNTT's offset^-i / n
+into its store; a tensor on the CPU takes the plain version, `_rows_plain`:
+the scales as `gf.mul`, then `_transform_plain`, the textbook iterative
+radix-2 network (a bit-reversal gather, then log2(n) butterfly stages over
+a (..., blocks, 2, half) view). There is no fallback from the kernel. Any
+correct transform gives the same field elements as `triton_vm_tpu.ops.ntt`
+(tests/test_torch_ntt.py, tests/test_torch_ntt_kernel.py).
 
-The leading axes are transformed a block of rows at a time
+On the CPU the leading axes are transformed a block of rows at a time
 (`gf.block_rows`), each block written into one preallocated output, so a
-transform's temporaries stay a few GB however many columns it has.
+transform's temporaries stay a few GB however many columns it has. K4
+writes the whole output in place and needs no temporary; only `lde`'s
+coefficients between its two launches are blocked on the card.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import torch
 
 from ..fields import bfe
 from ..fields.bfe import P
-from . import gf
+from . import gf, ntt_cuda
 from .npfield import powers_u64
 
 
@@ -58,9 +65,10 @@ def _scales(n: int, base: int, factor: int, device):
                    lambda: gf.from_u64(powers_u64(base, factor, n), device))
 
 
-def _transform(x, root: int):
+def _transform_plain(x, root: int):
     """Natural-order input -> natural-order output: out_k = sum_i
-    x_i root^(ik), root a primitive n-th root of unity."""
+    x_i root^(ik), root a primitive n-th root of unity. The radix-2
+    network in eager torch: K4's plain version."""
     n = x.shape[-1]
     if n == 1:
         return x
@@ -80,57 +88,112 @@ def _transform(x, root: int):
     return x
 
 
-def _blockwise(fn, x, length: int):
-    """fn over blocks of the rows of x (..., n), each block's result
-    (rows, length) written into one new tensor (..., length). The leading
-    axes of x must merge into one view (no copy is made)."""
-    out = torch.empty(x.shape[:-1] + (length,), dtype=x.dtype,
-                      device=x.device)
-    rows, dst = x.view(-1, x.shape[-1]), out.view(-1, length)
-    step = gf.block_rows(max(x.shape[-1], length))
-    for s in range(0, rows.shape[0], step):
-        dst[s:s + step] = fn(rows[s:s + step])
+def _rows_plain(x, root: int, length: int, pre=None, post=None):
+    """What K4 computes, in eager torch: post * NTT_root of the rows of
+    pre * x (..., n_in) zero-padded to `length`; pre (n_in,) and post
+    (length,) or None."""
+    if pre is not None:
+        x = gf.mul(x, pre)
+    if length != x.shape[-1]:
+        padded = torch.zeros(x.shape[:-1] + (length,), dtype=x.dtype,
+                             device=x.device)
+        padded[..., :x.shape[-1]] = x
+        x = padded
+    x = _transform_plain(x, root)
+    return x if post is None else gf.mul(x, post)
+
+
+def _rows(x, root: int, length: int, pre=None, post=None, out=None):
+    """The one dispatch point of every transform: `_rows_plain` over the
+    rows of x (rows, n_in), written into `out` (rows, length) if given.
+    A tensor on the CPU takes the plain version; any other launches K4
+    (ops/ntt_cuda.py), which raises on what it cannot take."""
+    if x.device.type != "cpu":
+        return ntt_cuda.ntt_rows(x, root, length, pre, post, out)
+    y = _rows_plain(x, root, length, pre, post)
+    if out is None:
+        return y
+    out.copy_(y)
     return out
 
 
-def _ntt_rows(coeffs, offset: int, length: int):
-    n = coeffs.shape[-1]
-    if offset % P != 1:
-        coeffs = gf.mul(coeffs, _scales(n, offset, 1, coeffs.device))
-    if length != n:
-        padded = torch.zeros(coeffs.shape[:-1] + (length,),
-                             dtype=coeffs.dtype, device=coeffs.device)
-        padded[..., :n] = coeffs
-        coeffs = padded
-    return _transform(coeffs, bfe.primitive_root_of_unity(length))
+def _transform(x, root: int):
+    """Natural-order input -> natural-order output along the last axis,
+    root a primitive n-th root of unity (ops/ntt_sharded.py passes its
+    own); the identity at n = 1."""
+    n = x.shape[-1]
+    if n == 1:
+        return x
+    return _rows(x.reshape(-1, n), root, n).view(x.shape)
 
 
-def _intt_rows(values, offset: int):
-    n = values.shape[-1]
-    c = _transform(values, bfe.inv(bfe.primitive_root_of_unity(n)))
-    return gf.mul(c, _scales(n, bfe.inv(offset), bfe.inv(n % P),
-                             values.device))
+def _blockwise(fn, x, length: int, step: int):
+    """fn(block, out_block) over blocks of `step` rows of x (..., n), each
+    block's result (rows, length) written into one new tensor (...,
+    length). The leading axes of x must merge into one view (no copy is
+    made)."""
+    out = torch.empty(x.shape[:-1] + (length,), dtype=x.dtype,
+                      device=x.device)
+    rows, dst = x.view(-1, x.shape[-1]), out.view(-1, length)
+    for s in range(0, rows.shape[0], step):
+        fn(rows[s:s + step], dst[s:s + step])
+    return out
+
+
+def _step(x, length: int, kernel_words: int = 0) -> int:
+    """Rows a block: on the CPU as many as keep the plain version's
+    temporaries under gf.WORK_BYTES; on the card K4 writes the output in
+    place and needs no temporary, so all of them, unless the caller holds
+    `kernel_words` words a row of its own between two launches (lde's
+    coefficients), which then stay under gf.WORK_BYTES."""
+    if x.device.type == "cpu":
+        return gf.block_rows(max(x.shape[-1], length))
+    if kernel_words:
+        return max(1, gf.WORK_BYTES // (8 * kernel_words))
+    return max(1, x.numel() // max(1, x.shape[-1]))
+
+
+def _coset_scale(n: int, offset: int, device):
+    return None if offset % P == 1 else _scales(n, offset, 1, device)
+
+
+def _unscale(n: int, offset: int, device):
+    """offset^-i / n for i < n: the iNTT's output scale."""
+    return _scales(n, bfe.inv(offset), bfe.inv(n % P), device)
 
 
 def ntt(coeffs, offset: int = 1, length: int | None = None):
     """Natural-order coefficients (..., n) -> values on offset *
     <omega_length> of the polynomial they give (length >= n, by default
     n): the coefficients zero-padded to `length`, then transformed."""
-    length = length or coeffs.shape[-1]
-    assert length >= coeffs.shape[-1]
-    return _blockwise(lambda b: _ntt_rows(b, offset, length), coeffs, length)
+    n = coeffs.shape[-1]
+    length = length or n
+    assert length >= n
+    root = bfe.primitive_root_of_unity(length)
+    pre = _coset_scale(n, offset, coeffs.device)
+    return _blockwise(lambda b, o: _rows(b, root, length, pre, out=o),
+                      coeffs, length, _step(coeffs, length))
 
 
 def intt(values, offset: int = 1):
     """Values on offset * <omega_n> -> natural-order coefficients."""
-    return _blockwise(lambda b: _intt_rows(b, offset), values,
-                      values.shape[-1])
+    n = values.shape[-1]
+    root = bfe.inv(bfe.primitive_root_of_unity(n))
+    post = _unscale(n, offset, values.device)
+    return _blockwise(lambda b, o: _rows(b, root, n, post=post, out=o),
+                      values, n, _step(values, n))
 
 
 def lde(values, expansion: int, in_offset: int = 1, out_offset: int = 7):
     """Values on in_offset * <omega_n> -> values of the same polynomial on
     out_offset * <omega_{expansion * n}> (arithmetic_domain.rs:203-212)."""
-    length = values.shape[-1] * expansion
+    n = values.shape[-1]
+    length = n * expansion
+    dev = values.device
+    inv_root = bfe.inv(bfe.primitive_root_of_unity(n))
+    root = bfe.primitive_root_of_unity(length)
+    post, pre = _unscale(n, in_offset, dev), _coset_scale(n, out_offset, dev)
     return _blockwise(
-        lambda b: _ntt_rows(_intt_rows(b, in_offset), out_offset, length),
-        values, length)
+        lambda b, o: _rows(_rows(b, inv_root, n, post=post), root, length,
+                           pre, out=o),
+        values, length, _step(values, length, kernel_words=n))

@@ -14,10 +14,10 @@ x n2 over D shards, input x_j in natural order, j = j1 n2 + j2:
 
 The coset prescale offset^j comes first; the inverse runs the same
 network with inverted roots, and its 1/n and offset^-j fold into one
-natural-order postscale. The local transforms are the port's radix-2
-network (`ntt._transform`, explicit root), so every element equals the
-single-device `ntt.ntt` / `ntt.intt` (exact arithmetic;
-tests/test_torch_ntt_sharded.py). The exchanges are the copies of
+natural-order postscale. The local transforms go through `ntt._transform`
+with an explicit root (K4 on a shard's card, the radix-2 network on the
+CPU), so every element equals the single-device `ntt.ntt` / `ntt.intt`
+(exact arithmetic; tests/test_torch_ntt_sharded.py). The exchanges are the copies of
 `parallel.sharding.all_to_all`; a shard's twiddle and scale tables are
 built on its device, cached per (n, D, shard, offset, direction, device).
 Transforms run along the last axis and batch over the leading ones (the

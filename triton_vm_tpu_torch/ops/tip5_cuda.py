@@ -67,14 +67,32 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _source_bytes(src: Path) -> bytes:
+    """The bytes of `src` and of every header it includes with
+    #include "..." (resolved beside it, recursively), so that an edited
+    header changes the build's hash."""
+    seen, out, todo = set(), [], [src]
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.add(f)
+        text = f.read_bytes()
+        out.append(text)
+        todo += [f.parent / m.decode() for m in
+                 re.findall(rb'^\s*#\s*include\s+"([^"]+)"', text, re.M)]
+    return b"".join(out)
+
+
 def build(src: Path = _SRC) -> Path:
     """Compile `src` (csrc/tip5.cu by default, csrc/quotient.cu for
-    ops/quotient_cuda.py; tools/tip5_probe.py names other copies of
-    tip5.cu to time them in turns), if no library for this source exists
-    yet, and return the library's path, lib<stem>_<hash>.so. ptxas's
-    report (-v) is kept beside it, see `ptxas_report`."""
+    ops/quotient_cuda.py, csrc/ntt.cu for ops/ntt_cuda.py;
+    tools/tip5_probe.py names other copies of tip5.cu to time them in
+    turns), if no library for this source and the headers it includes
+    exists yet, and return the library's path, lib<stem>_<hash>.so.
+    ptxas's report (-v) is kept beside it, see `ptxas_report`."""
     src = Path(src)
-    tag = hashlib.sha256(src.read_bytes()
+    tag = hashlib.sha256(_source_bytes(src)
                          + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
     so = _BUILD_DIR / f"lib{src.stem}_{tag}.so"
     if so.exists():

@@ -380,8 +380,11 @@ class _ProcPrelude:
         row_valid, row_arg, _ = _decode_rows(self.ci, self.nia)
         self.prev_valid = _prev_mask(row_valid)
         self.prev_arg = _prev_gf(row_arg)
-        self.prev_ci_is = \
-            lambda opcode: _prev_mask(_eqc(self.ci, opcode))
+
+    # a method, not a lambda attribute closing over self: that reference
+    # cycle kept every tensor here alive until the cycle collector ran
+    def prev_ci_is(self, opcode):
+        return _prev_mask(_eqc(self.ci, opcode))
 
 
 def _fac_processor_io(ctx, C):
