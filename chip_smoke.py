@@ -10,9 +10,11 @@ Phases, in order (`--phases` names in brackets); any failure exits
 non-zero and prints no result line:
 
 1. versions, the card's name and power limit, the build of both Tip5
-   kernels, of K3 and of K4 from csrc/ (the three nvcc runs started
-   together, seconds printed) and ptxas's report for each kernel
-   (registers, spills, stack, shared memory);
+   kernels, of K3 (its source generated from the row tape, its units
+   compiled in parallel processes) and of K4 from csrc/ (the three
+   builds started together, seconds printed) and ptxas's report for each
+   kernel (registers, spills, stack, shared memory; K3's segment kernels
+   summed, with its build's seconds);
 2. [kernels] K1 (Tip5 permutation) against its plain torch version on
    the card (2^18 random states, edge-value states, the MDS's worst-case
    states, a ragged 2^18 + 3 batch) and 8 states against the host
@@ -27,7 +29,8 @@ non-zero and prints no result line:
    `tip5.hash_varlen`; kernel times at all four widths, plain times at
    379 and 12, and K2's time per spin_32768 and per spin_65536 prove
    (every launch's shape timed);
-3b. [kernels] K3 (the AIR quotient, csrc/quotient.cu) against its plain
+3b. [kernels] K3 (the AIR quotient: the row tape compiled into segment
+   kernels by ops/tape_codegen.py around csrc/quotient.cu) against its plain
    version at the full widths on 2^16 random rows, a ragged 2^16 + 3,
    edge values, aux as a permuted view and a mesh shard's rows with their
    halo; against the level tape (the CPU path's `_quotient_chunk_fn`) at
@@ -146,7 +149,10 @@ above 0 on every path, and every prove but fib_1024's,
 fib_1024_stir's and the mesh's (which counts its own) must launch K1
 once per Merkle layer, K2 once per committed table (once per hashed
 coset of the main and aux tables on the JIT path) and STIR tree, and K3
-once (once per coset on the JIT path), as the per-prove totals assume.
+once (once per coset on the JIT path; a call launches a first kernel, one
+a segment and a last one per chunk of rows, and each launch counts), as
+the per-prove totals assume. No single-device prove may build a power
+table of more than 2^12 words on the host (`npfield.long_tables`).
 While a path proves, the quotient stage's level-tape chunk function,
 K3's plain versions and the NTT's plain network raise if handed a tensor
 on the card (the derived columns' fill still runs `run_tape_scan` there),
@@ -303,6 +309,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 SOURCE = "triton_vm_tpu_torch/csrc/tip5.cu"
 SOURCE_K3 = "triton_vm_tpu_torch/csrc/quotient.cu"
+# K3's row tape is compiled into its source by this generator
+GENERATOR_K3 = "triton_vm_tpu_torch/ops/tape_codegen.py"
 # K3 has no Pallas counterpart: the JAX package jits the same function
 K3_REPLACES = "triton_vm_tpu/stark/prover.py:1185"
 SOURCE_K4 = "triton_vm_tpu_torch/csrc/ntt.cu"
@@ -702,10 +710,12 @@ def phase_k2(rng, bound):
 
 
 def k3_launches_per_prove(log2_height, jit=None):
-    """(rows, count) of K3's launches in a prove at padded height
+    """(rows, count) of K3's calls in a prove at padded height
     2^log2_height: one over the quotient domain on the cached path, one
     per coset of the randomized trace's length on the JIT path (from 2^20
-    unless `jit` says otherwise)."""
+    unless `jit` says otherwise). A call launches
+    `quotient_cuda.launches_per_call(rows)` kernels (a first and a last
+    one and one a segment, per chunk of rows)."""
     from triton_vm_tpu_torch import Stark
 
     _, _, _, rand_dom, quot_dom, _ = Stark().derive_domains(
@@ -817,6 +827,7 @@ def phase_k3(rng, bound):
     log(f"K3 ok (max_abs_err 0); 2^16 rows: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return dict(name="quotient_rows", route="cuda", source=SOURCE_K3,
+                generator=GENERATOR_K3,
                 replaces=K3_REPLACES, max_abs_err=0, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None,
@@ -854,8 +865,8 @@ def k4_inputs(rows, n_in, length, scaled_in, scaled_out, device_draw=False,
     root = bfe.primitive_root_of_unity(length)
     if scaled_out:
         root = bfe.inv(root)
-    pre = ntt._coset_scale(n_in, 7, "cuda") if scaled_in else None
-    post = ntt._unscale(length, 7, "cuda") if scaled_out else None
+    pre = ntt._coset_scale(7) if scaled_in else None
+    post = ntt._unscale(length, 7) if scaled_out else None
     return x, root, length, pre, post
 
 
@@ -942,9 +953,9 @@ def phase_k4(rng, bound):
     got = ntt.lde(x, 4, 1, 7)
     want = ntt._rows_plain(
         ntt._rows_plain(x, bfe.inv(bfe.primitive_root_of_unity(4096)),
-                        4096, None, ntt._unscale(4096, 1, "cuda")),
+                        4096, None, ntt._unscale(4096, 1)),
         bfe.primitive_root_of_unity(1 << 14), 1 << 14,
-        ntt._coset_scale(4096, 7, "cuda"))
+        ntt._coset_scale(7))
     err = max_abs_err(got, want)
     if err:
         raise AssertionError(f"K4's lde disagrees with its plain version: "
@@ -956,6 +967,7 @@ def phase_k4(rng, bound):
     # allocated and count in the proves' peak device memory
     ntt._DEVICE_CACHE.clear()
     ntt_cuda._TABLES.clear()
+    gf._POWER_TABLES.clear()
     torch.cuda.empty_cache()
     for shape, (ms, bms, by) in by_shape.items():
         log(f"K4 {k4_shape_label(*shape)}: {ms:.4f} ms, bound {bms:.4f} ms "
@@ -1088,10 +1100,12 @@ def prove_and_verify(label, program, public_input, ldt_choice=None,
     import triton_vm_tpu_torch as tvm
     from triton_vm_tpu_torch.fields.bfe import P
     from triton_vm_tpu_torch.ldt.fri import LdtError
+    from triton_vm_tpu_torch.ops import npfield
     from triton_vm_tpu_torch.stark.codec import DecodeError
     from triton_vm_tpu_torch.utils import profiler
 
     torch.cuda.empty_cache()
+    tables_before = npfield.long_tables["powers_u64"]
     cards = range(torch.cuda.device_count())
     for card in cards:
         torch.cuda.reset_peak_memory_stats(card)
@@ -1120,6 +1134,17 @@ def prove_and_verify(label, program, public_input, ldt_choice=None,
     launches = {"prove": _launches_since(before), "prove_by_device": {
         d: {k: n - before_dev.get(d, {}).get(k, 0) for k, n in c.items()}
         for d, c in launches_by_device().items()}}
+    # power tables of more than 2^12 words the prove built on the host
+    # (npfield.powers_u64): none on one device, where K3, K4 and
+    # gf.powers form every power from two 2^12-word tables on the card;
+    # the mesh's six-step transform keeps its host tables
+    launches["host_power_tables"] = (npfield.long_tables["powers_u64"]
+                                     - tables_before)
+    if launches["host_power_tables"] and not os.environ.get("TVM_MESH"):
+        raise AssertionError(
+            f"{label}: the prove built {launches['host_power_tables']} "
+            f"power tables of more than {npfield.LONG_TABLE_WORDS} words "
+            "on the host")
     before = all_launches()
     t0 = time.perf_counter()
     if not stark.verify(claim, proof):
@@ -1193,31 +1218,43 @@ def check_proof(label, log2_height, stark, proof, launches, jit):
     if k2 != want_k2:
         raise AssertionError(f"{label} launched K2 {k2} times, not "
                              f"{want_k2}")
+    from triton_vm_tpu_torch.ops import quotient_cuda
+
     k3 = launches["prove"]["quotient_rows"]
-    rows, want_k3 = k3_launches_per_prove(log2_height, jit)
+    rows, calls = k3_launches_per_prove(log2_height, jit)
+    want_k3 = calls * quotient_cuda.launches_per_call(rows)
     if k3 != want_k3:
-        raise AssertionError(f"{label} launched K3 {k3} times, not "
-                             f"{want_k3} (2^{rows.bit_length() - 1} rows "
-                             "each)")
+        raise AssertionError(f"{label} launched K3's kernels {k3} times, "
+                             f"not {want_k3} ({calls} calls of "
+                             f"2^{rows.bit_length() - 1} rows)")
 
 
-def mesh_launch_counts(log2_height, shards):
-    """K1, K2 and K3 launches of a prove sharded over `shards` shards
-    (cached LDE): the main and aux trees take one K2 launch a shard and
+def mesh_launch_counts(log2_height, mesh):
+    """K1 and K2 launches of a prove sharded over `mesh` (cached LDE), and
+    K3's by card: the main and aux trees take one K2 launch a shard and
     one K1 launch per layer of each shard's subtree, then one per layer of
     the top log2(shards) layers on the lead device; the quotient tree and
-    the low-degree test's trees stay on the lead device; K3 runs once a
-    shard over its rows and halo."""
+    the low-degree test's trees stay on the lead device; K3 runs on every
+    shard over its rows and halo (`quotient_cuda.launches_per_call` of a
+    shard's rows, in its card's chunks, `mesh.quotient_chunk_rows`)."""
     from triton_vm_tpu_torch import Stark
     from triton_vm_tpu_torch.ldt.stir import Stir
+    from triton_vm_tpu_torch.ops import quotient_cuda
+    from triton_vm_tpu_torch.parallel import mesh as pmesh
 
+    shards = mesh.size
     ldt = Stark().ldt(1 << log2_height)
     log_l = ldt.initial_domain().length.bit_length() - 1
     log_d = shards.bit_length() - 1
     leaves = ldt_tree_leaves(ldt)
     k1 = 2 * (shards * (log_l - log_d) + log_d) + log_l + sum(leaves)
     k2 = 2 * shards + 1 + (len(leaves) if isinstance(ldt, Stir) else 0)
-    return k1, k2, shards
+    _, _, _, _, quot_dom, _ = Stark().derive_domains(1 << log2_height)
+    k3 = collections.Counter()
+    for d in mesh.devices:
+        k3[str(d)] += quotient_cuda.launches_per_call(
+            quot_dom.length // shards, pmesh.quotient_chunk_rows(mesh, d))
+    return k1, k2, k3
 
 
 def phase_mesh_kernels(rng, bound):
@@ -1295,15 +1332,14 @@ def drive_mesh(proofs):
             if missing:
                 raise AssertionError(f"{label}: K1, K2 or K3 never launched "
                                      f"on {missing}: {by_card}")
-            # K3 once a shard, on the shard's own card
+            # K3 on every shard, on the shard's own card
             k3_cards = {c: n["quotient_rows"] for c, n in by_card.items()
                         if n["quotient_rows"]}
-            shard_cards = dict(collections.Counter(
-                str(d) for d in mesh.devices))
+            k1, k2, shard_cards = mesh_launch_counts(log2_height, mesh)
             if k3_cards != shard_cards:
                 raise AssertionError(f"{label}: K3 launched {k3_cards} by "
                                      f"card, the shards lie {shard_cards}")
-            want = mesh_launch_counts(log2_height, MESH_SHARDS)
+            want = (k1, k2, sum(shard_cards.values()))
             got = (launches["prove"]["tip5_permutation"],
                    launches["prove"]["tip5_sponge_rows"],
                    launches["prove"]["quotient_rows"])

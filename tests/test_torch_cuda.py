@@ -279,10 +279,10 @@ def test_ntt_kernel_matches_plain(cuda, rows, n_in, length, inverse):
     x = gf.from_u64(_field(rows, (rows, n_in)), cuda)
     if inverse:
         root = bfe.inv(bfe.primitive_root_of_unity(length))
-        pre, post = None, ntt._unscale(length, 7, cuda)
+        pre, post = None, ntt._unscale(length, 7)
     else:
         root = bfe.primitive_root_of_unity(length)
-        pre, post = ntt._coset_scale(n_in, 7, cuda), None
+        pre, post = ntt._coset_scale(7), None
     assert torch.equal(ntt_cuda.ntt_rows(x, root, length, pre, post),
                        ntt._rows_plain(x, root, length, pre, post))
 

@@ -1,17 +1,20 @@
 """K4, the port's NTT kernel (csrc/ntt.cu, ops/ntt_cuda.py), on the CPU.
 
 The kernel itself runs only on a card. What it computes is fixed on the
-host: the split of each length into passes (`ntt_cuda.plan`), the tables
-the passes read (`ntt_cuda.tables`) and the scales ops/ntt.py fuses into
-them. `reenact` runs those passes in torch as the kernel runs them (the
-strided sub-sequences, the zero-padding and scales on the load and the
-store, the pass-2 twiddle from its two 2^12-word tables, bit-reversed
-order and the decimation-in-time stages over the inner twiddles), and the
-result is held word for word against the JAX package's ntt / intt / lde
-(triton_vm_tpu.ops.ntt, run on the CPU as tests/test_torch_ntt.py runs
-it). The dispatcher's CPU path and K4's refusals are checked here; the
-kernel against its plain version on the card is in
-tests/test_torch_cuda.py (marked `cuda`, it imports no JAX)."""
+host: the split of each length into passes (`ntt_cuda.plan`) and of each
+pass into levels of radix up to 16, the tables the passes read
+(`ntt_cuda.tables`) and the scales ops/ntt.py fuses into them, read from
+the two 2^12-word tables of `gf.power_tables`. `reenact` runs those
+passes in torch as the kernel runs them (the strided sub-sequences, the
+zero-padding and scales on the load and the store, the pass-2 twiddle
+from its two tables; each level's groups gathered in bit-reversed order,
+the radix-2 stages over the register roots, the levels' twiddles from
+their k-major table, the last level's outputs at their digit-reversed
+positions), and the result is held word for word against the JAX
+package's ntt / intt / lde (triton_vm_tpu.ops.ntt, run on the CPU as
+tests/test_torch_ntt.py runs it). The dispatcher's CPU path and K4's
+refusals are checked here; the kernel against its plain version on the
+card is in tests/test_torch_cuda.py (marked `cuda`, it imports no JAX)."""
 
 import numpy as np
 import pytest
@@ -21,7 +24,7 @@ from triton_vm_tpu.fields.bfe import P
 from triton_vm_tpu.ops import gf as jgf
 from triton_vm_tpu.ops import ntt as jntt
 from triton_vm_tpu_torch.fields import bfe
-from triton_vm_tpu_torch.ops import gf, ntt, ntt_cuda
+from triton_vm_tpu_torch.ops import gf, npfield, ntt, ntt_cuda
 
 torch.set_num_threads(2)
 
@@ -36,11 +39,70 @@ def _field(seed, shape):
     return a
 
 
+def _table_power(tables, e):
+    """csrc/goldilocks.cuh's table_power: lo[e mod 2^12] * hi[e >> 12]."""
+    lo, hi = tables
+    return gf.mul(lo[e & ((1 << gf.POW_BITS) - 1)], hi[e >> gf.POW_BITS])
+
+
+def _bitrev(bits):
+    return torch.as_tensor(ntt.bitrev_indices(1 << bits))
+
+
+def _registers_dft(a, roots, r):
+    """csrc/ntt.cu's dft over the last axis of a (..., 2^r), bit-reversed
+    in, natural order out: the stage of half-width h multiplies by
+    roots[j * 8 / h]."""
+    R = 1 << r
+    h = 1
+    while h < R:
+        v = a.reshape(*a.shape[:-1], R // (2 * h), 2, h)
+        u = v[..., 0, :]
+        w = gf.mul(v[..., 1, :], roots[torch.arange(h) * (8 // h)])
+        a = torch.stack([gf.add(u, w), gf.sub(u, w)], dim=-2).reshape(
+            a.shape)
+        h *= 2
+    return a
+
+
+def _levels(v, p, inner, roots):
+    """A pass's levels over v (rows, seqs, L), natural order in and out."""
+    rows, seqs, L = v.shape
+    lv, log_m, off = p.levels, p.log_len, 0
+    for k, r in enumerate(lv):
+        R, Q = 1 << r, 1 << (log_m - r)
+        # group (seg, i_a) holds the words at seg M + i_a + Q b, b < R
+        g = v.reshape(rows, seqs, L >> log_m, R, Q).transpose(-1, -2)
+        g = _registers_dft(g[..., _bitrev(r)], roots, r)
+        if k < len(lv) - 1:
+            tw = inner[off + torch.arange(R)[None, :] * Q
+                       + torch.arange(Q)[:, None]]        # (Q, R)
+            g = gf.mul(g, tw)
+            v = g.transpose(-1, -2).reshape(rows, seqs, L)
+            off += 1 << log_m
+            log_m -= r
+            continue
+        # the last level: segment seg's output k is X[xb(seg) + (L / R) k]
+        seg = torch.arange(L >> r)
+        if len(lv) == 3:
+            xb = (seg >> lv[1]) + ((seg & ((1 << lv[1]) - 1)) << lv[0])
+        else:
+            xb = seg
+        x = torch.empty_like(v)
+        x[..., xb[:, None] + (L >> r) * torch.arange(R)[None, :]] = \
+            g.reshape(rows, seqs, L >> r, R)
+        return x
+    return v
+
+
 def reenact(x, root: int, length: int, pre=None, post=None):
     """K4's passes over the rows of x (rows, n_in), in torch on the CPU:
-    out[r, k] = post[k] sum_i pre[i] x[r, i] root^(i k)."""
+    out[r, k] = post(k) sum_i pre(i) x[r, i] root^(i k), a scale (base,
+    factor) being i -> factor * base^i."""
     rows, n_in = x.shape
-    tw, inner = ntt_cuda.tables(length, root)
+    tw, inner, roots = ntt_cuda.tables(length, root)
+    pre_t = None if pre is None else gf.power_tables(*pre)
+    post_t = None if post is None else gf.power_tables(*post)
     out = torch.zeros((rows, length), dtype=torch.int64)
     for k, p in enumerate(ntt_cuda.plan(length)):
         n_len, seqs = 1 << p.log_len, 1 << p.log_seqs
@@ -51,25 +113,14 @@ def reenact(x, root: int, length: int, pre=None, post=None):
         valid = pos < src_n
         at = pos.clamp(max=src_n - 1)
         v = torch.where(valid, src[:, at], 0)               # (rows, seqs, L)
-        if p.first and pre is not None:
-            v = gf.mul(v, pre[at])
+        if p.first and pre_t is not None:
+            v = gf.mul(v, _table_power(pre_t, at))
         if p.twiddle:
-            e = s * j
-            lo, hi = (gf.from_u64(t) for t in tw)
-            v = gf.mul(v, gf.mul(lo[e & ((1 << ntt_cuda.TW_BITS) - 1)],
-                                 hi[e >> ntt_cuda.TW_BITS]))
-        v = v[..., torch.as_tensor(ntt.bitrev_indices(n_len))]
-        w_all = gf.from_u64(inner[k])
-        for lm in range(p.log_len):
-            m = 1 << lm
-            vv = v.reshape(rows, seqs, n_len // (2 * m), 2, m)
-            u, t = vv[..., 0, :], vv[..., 1, :]
-            t = gf.mul(t, w_all[torch.arange(m) << (p.log_len - 1 - lm)])
-            v = torch.stack([gf.add(u, t), gf.sub(u, t)], dim=-2).reshape(
-                rows, seqs, n_len)
+            v = gf.mul(v, _table_power([gf.from_u64(t) for t in tw], s * j))
+        v = _levels(v, p, gf.from_u64(inner[k]), gf.from_u64(roots[k]))
         opos = s * p.out_seq + j * p.out_elem
-        if p.last and post is not None:
-            v = gf.mul(v, post[opos])
+        if p.last and post_t is not None:
+            v = gf.mul(v, _table_power(post_t, opos))
         out = out.clone()
         out[:, opos.reshape(-1)] = v.reshape(rows, -1)
     return out
@@ -81,7 +132,7 @@ def _ntt_k4(a, offset, length=None):
     n = x.shape[-1]
     length = length or n
     got = reenact(x, bfe.primitive_root_of_unity(length), length,
-                  ntt._coset_scale(n, offset, "cpu"))
+                  ntt._coset_scale(offset))
     return gf.to_u64(got).reshape(a.shape[:-1] + (length,))
 
 
@@ -89,7 +140,7 @@ def _intt_k4(a, offset):
     x = gf.from_u64(a.reshape(-1, a.shape[-1]))
     n = x.shape[-1]
     got = reenact(x, bfe.inv(bfe.primitive_root_of_unity(n)), n,
-                  post=ntt._unscale(n, offset, "cpu"))
+                  post=ntt._unscale(n, offset))
     return gf.to_u64(got).reshape(a.shape)
 
 
@@ -101,15 +152,20 @@ def _jax(fn, a, *args):
 
 @pytest.mark.parametrize("log_n", range(0, ntt_cuda.MAX_LOG_LENGTH + 1))
 def test_plan_covers_every_length(log_n):
-    """Each pass fits a CTA's shared memory; the passes' lengths multiply
-    to n; a four-step split's pass 1 reads every input position once and
-    pass 2 writes every output position once."""
+    """Each pass fits a CTA (16 words a thread, at most 512 threads); its
+    levels' radix bits sum to its length's, each at most 4, every level
+    but the last of radix 16 when there are several; the passes' lengths
+    multiply to n; a four-step split's pass 1 reads every input position
+    once and pass 2 writes every output position once."""
     n = 1 << log_n
     passes = ntt_cuda.plan(n)
     assert sum(p.log_len for p in passes) == log_n
     for p in passes:
         assert p.log_len <= ntt_cuda.MAX_PASS_LOG
-        assert p.log_len + p.log_tile <= ntt_cuda.MAX_LOG_TILE_WORDS
+        assert 1 <= ntt_cuda.threads(p) <= ntt_cuda.MAX_THREADS
+        assert sum(p.levels) == p.log_len and max(p.levels) <= 4
+        assert len(p.levels) == 1 or p.levels[0] == 4 == p.levels[-1] or (
+            len(p.levels) == 2 and p.levels[0] == 4)
     assert passes[0].first and passes[-1].last
     assert len(passes) == (1 if log_n <= ntt_cuda.MAX_PASS_LOG else 2)
     if len(passes) == 2 and log_n <= 16:
@@ -182,17 +238,27 @@ def test_reenacted_xfe_batches_match_jax(shape):
 
 
 def test_twiddle_tables_split_the_exponent():
-    """w^e = lo[e mod 2^12] * hi[e >> 12] for every e < n at 2^24."""
+    """w^e = lo[e mod 2^12] * hi[e >> 12] for every e < n at 2^24; each
+    pass's register roots are the powers of a primitive 16th root, and
+    its levels' twiddle (k, i_a) is w_M^(i_a k), k-major."""
     n = 1 << 24
     root = bfe.primitive_root_of_unity(n)
-    (lo, hi), inner = ntt_cuda.tables(n, root)
+    (lo, hi), inner, roots = ntt_cuda.tables(n, root)
     assert lo.shape == hi.shape == (1 << 12,)
     for e in (0, 1, 4095, 4096, 123456789 % n, n - 1):
         assert int(lo[e % 4096]) * int(hi[e >> 12]) % P == pow(root, e, P)
-    for p, w in zip(ntt_cuda.plan(n), inner):
+    for p, w, rw in zip(ntt_cuda.plan(n), inner, roots):
         w_len = pow(root, n >> p.log_len, P)
-        assert len(w) == 1 << (p.log_len - 1)
-        assert int(w[1]) == w_len and pow(w_len, 1 << p.log_len, P) == 1
+        w16 = int(rw[1])
+        assert w16 == pow(w_len, (1 << p.log_len) // 16, P)
+        assert pow(w16, 8, P) == P - 1
+        assert [int(v) for v in rw] == [pow(w16, j, P) for j in range(8)]
+        assert p.levels == (4, 4, 4) and len(w) == 4096 + 256
+        for k, ia in ((1, 1), (3, 200), (15, 255)):
+            assert int(w[k * 256 + ia]) == pow(w_len, ia * k, P)
+        w_256 = pow(w_len, 16, P)
+        for k, ia in ((1, 1), (7, 9), (15, 15)):
+            assert int(w[4096 + k * 16 + ia]) == pow(w_256, ia * k, P)
 
 
 def test_work_counts_the_bound():
@@ -244,3 +310,29 @@ def test_k4_refuses_what_it_cannot_take():
         ntt_cuda.ntt_rows(x, bfe.primitive_root_of_unity(32), 32)
     with pytest.raises(TypeError, match="int64"):
         ntt_cuda.ntt_rows(x.float(), root, 64)
+
+
+# ------------------------------------------------------------ power tables
+
+@pytest.mark.parametrize("offset", [0, P - 1, RANDOM_OFFSET])
+@pytest.mark.parametrize("n", [1, (1 << 12) - 1, 1 << 12, (1 << 12) + 1,
+                               1 << 20])
+def test_two_table_powers_equal_the_host_ladder(n, offset):
+    """gf.table_powers, the route gf.powers takes on a card (two 2^12-word
+    tables gathered and multiplied once), equals npfield.powers_u64 word
+    for word, offsets 0 and p - 1 included; and it builds no host table
+    longer than 2^12 words."""
+    base = bfe.primitive_root_of_unity(1 << 21)
+    before = npfield.long_tables["powers_u64"]
+    got = gf.to_u64(gf.table_powers(base, n, offset, "cpu"))
+    assert npfield.long_tables["powers_u64"] == before
+    assert np.array_equal(got, npfield.powers_u64(base, offset, n))
+
+
+def test_power_tables_split_the_exponent():
+    lo, hi = gf.power_tables(7, 5)
+    for e in (0, 1, 4095, 4096, 123456, (1 << 24) - 1):
+        assert (int(gf.to_u64(lo)[e % 4096]) * int(gf.to_u64(hi)[e >> 12])
+                % P == 5 * pow(7, e, P) % P)
+    with pytest.raises(ValueError, match="exceed"):
+        gf.table_powers(7, (1 << 24) + 1, 1, "cpu")

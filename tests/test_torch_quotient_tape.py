@@ -168,15 +168,24 @@ def test_quotient_row_tape_joins_the_phases():
 
 
 def test_register_files_fit_the_kernel():
-    """The row tape's register file stays within what K3's launch
-    assumes: the kernel's per-thread kMaxRegWords (mirrored by
-    MAX_REG_WORDS)."""
+    """The row tape fits what K3's source assumes: four phases (the four
+    zerofier words of the kernel's state array, at the generator's
+    ZEROFIERS), operand indices within the 16 bits the encoding gives
+    them, and a generated state array no larger than the tape's register
+    file and st's fixed words (values pass through it only across
+    segments)."""
+    from triton_vm_tpu_torch.ops import tape_codegen
+
     src = (Path(quotient_cuda.__file__).resolve().parent.parent / "csrc"
            / "quotient.cu").read_text()
-    k_max = int(re.search(r"kMaxRegWords = (\d+);", src).group(1))
-    assert k_max == quotient_cuda.MAX_REG_WORDS
+    assert "return QUOTIENT_STATE_WORDS;" in src
+    for name, want in (("kAcc", tape_codegen.ACC),
+                       ("kTotal", tape_codegen.TOTAL),
+                       ("kZerofiers", tape_codegen.ZEROFIERS)):
+        assert int(re.search(rf"{name} = (\d+)", src).group(1)) == want
     tape = aircomp.quotient_row_tape()
-    assert tape.reg_words <= quotient_cuda.MAX_REG_WORDS
+    gen = tape_codegen.generate(tape)
+    assert gen.state_words <= tape.reg_words + tape_codegen.FIXED_WORDS
     assert tape.num_phases == 4
     # operand indices fit the 16 bits the encoding gives them
     assert len(tape.bconsts) < 1 << 16 and len(tape.xconsts) < 1 << 16
@@ -258,7 +267,7 @@ def test_combined_quotient_matches_jax(fib_trace, want_quotient, case):
     Q = quot_dom.length
     shift = Q // trace_dom.length
     ch, ws = prover._quotient_inputs(challenges, weights, "cpu")
-    xs = gf.powers(quot_dom.generator, Q, quot_dom.offset)
+    points = quotient_cuda.Points(quot_dom.generator, quot_dom.offset, Q)
     rows = slice(0, Q)
     main, aux = main_q, aux_q
     if case == "contiguous":
@@ -274,9 +283,10 @@ def test_combined_quotient_matches_jax(fib_trace, want_quotient, case):
         idx = (torch.arange(block + shift) + 2 * block) % Q
         main, aux = main_q[:, idx], aux_q[:, :, idx]
         rows = slice(2 * block, 3 * block)
-        xs = xs[rows]
+        points = points._replace(n=block, start=2 * block)
     got = quotient_cuda.quotients_on_rows(
-        aircomp.quotient_row_tape(), main, aux, xs, shift, trace_dom.length,
+        aircomp.quotient_row_tape(), main, aux, points, shift,
+        trace_dom.length,
         bfe.inv(trace_dom.generator), ch, torch.cat(ws, dim=1))
     assert np.array_equal(gf.to_u64(got), want_quotient[:, rows])
 
@@ -314,6 +324,6 @@ def test_k3_raises_without_a_card(how):
     with pytest.raises(ValueError, match="CUDA"):
         quotient_cuda.quotients_on_rows(
             tape, torch.empty((379, 8), **meta),
-            torch.empty((3, 91, 8), **meta), torch.empty(8, **meta), 1, 4,
-            1, torch.empty((3, 63), **meta),
+            torch.empty((3, 91, 8), **meta), quotient_cuda.Points(7, 1, 8),
+            1, 4, 1, torch.empty((3, 63), **meta),
             torch.empty((3, tape.num_weights), **meta))

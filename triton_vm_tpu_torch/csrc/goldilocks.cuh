@@ -1,5 +1,6 @@
-// Goldilocks arithmetic on Hopper, shared by K3 (csrc/quotient.cu) and K4
-// (csrc/ntt.cu): p = 2^64 - 2^32 + 1, a field element a u64 in [0, p).
+// Goldilocks arithmetic on Hopper, shared by K3 (csrc/quotient.cu and the
+// row-tape source generated from it) and K4 (csrc/ntt.cu):
+// p = 2^64 - 2^32 + 1, a field element a u64 in [0, p).
 // Reduction uses 2^64 = 2^32 - 1 and 2^96 = -1 (mod p); each carry chain is
 // one `asm` block (csrc/tip5.cu keeps its own lazy variants for Tip5).
 //
@@ -93,6 +94,28 @@ __device__ __forceinline__ uint64_t fsub(uint64_t a, uint64_t b) {
 
 __device__ __forceinline__ uint64_t fmul(uint64_t a, uint64_t b) {
   return canonical(reduce128(a * b, __umul64hi(a, b)));
+}
+
+// Lazy words: a word stands for its value mod p anywhere in [0, 2^64).
+// fmul takes any words and returns a canonical one; fsub takes any a and
+// a canonical b (a - b + p >= 1 on a borrow) and so does add_lazy, which
+// returns a word that need not be canonical (a + b - 2^64 + eps < 2^64 on a
+// carry). `canonical` brings a lazy word back to [0, p).
+__device__ __forceinline__ uint64_t add_lazy(uint64_t a, uint64_t b) {
+  const uint64_t s = a + b;
+  return s < a ? s + kEps : s;
+}
+
+// The two-table power: base^e = lo[e mod 2^12] * hi[e >> 12] for e < 2^24,
+// lo[j] = f base^j and hi[j] = base^(2^12 j) (ops/gf.py::power_tables), so
+// lo[.] hi[.] = f base^e, with f the factor folded into lo.
+constexpr int kPowBits = 12;
+
+__device__ __forceinline__ uint64_t table_power(const uint64_t* lo,
+                                                const uint64_t* hi,
+                                                uint32_t e) {
+  return fmul(__ldg(lo + (e & ((1u << kPowBits) - 1))),
+              __ldg(hi + (e >> kPowBits)));
 }
 
 }  // namespace

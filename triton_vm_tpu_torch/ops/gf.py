@@ -176,8 +176,48 @@ def batch_inverse(v):
     return torch.where(zero, torch.zeros_like(v), out)
 
 
-def powers(base: int, n: int, offset: int = 1, device="cpu"):
-    """[offset * base^i for i < n] as an int64 tensor (host ladder)."""
+# The split of a power's exponent, csrc/goldilocks.cuh's kPowBits:
+# offset * base^e = lo[e mod 2^12] * hi[e >> 12] for e < 2^24.
+POW_BITS = 12
+MAX_POWER_WORDS = 1 << 2 * POW_BITS
+_POWER_TABLES: dict = {}
+
+
+def power_tables(base: int, offset: int = 1, device="cpu"):
+    """(lo, hi), two int64 tensors of 2^12 words on `device` (cached per
+    base, offset and device): lo[j] = offset * base^j and hi[j] =
+    base^(2^12 j), so offset * base^e = lo[e mod 2^12] * hi[e >> 12] for
+    every e < 2^24. K3 and K4 read them in the kernel; `powers` gathers
+    them on the card."""
     from .npfield import powers_u64
 
-    return from_u64(powers_u64(base, offset, n), device)
+    key = (base % P, offset % P, str(device))
+    t = _POWER_TABLES.get(key)
+    if t is None:
+        n = 1 << POW_BITS
+        t = _POWER_TABLES[key] = (
+            from_u64(powers_u64(base, offset, n), device),
+            from_u64(powers_u64(pow(base, n, P), 1, n), device))
+    return t
+
+
+def table_powers(base: int, n: int, offset: int = 1, device="cpu"):
+    """[offset * base^i for i < n] from the two tables of `power_tables`,
+    gathered and multiplied once on `device` (n <= 2^24)."""
+    if n > MAX_POWER_WORDS:
+        raise ValueError(f"powers: {n} words exceed the tables' "
+                         f"{MAX_POWER_WORDS}")
+    lo, hi = power_tables(base, offset, device)
+    e = torch.arange(n, device=device)
+    return mul(lo[e & ((1 << POW_BITS) - 1)], hi[e >> POW_BITS])
+
+
+def powers(base: int, n: int, offset: int = 1, device="cpu"):
+    """[offset * base^i for i < n] as an int64 tensor: on the CPU the host
+    ladder (`npfield.powers_u64`), elsewhere `table_powers`, so no n-word
+    table is built on the host."""
+    from .npfield import powers_u64
+
+    if torch.device(device).type == "cpu":
+        return from_u64(powers_u64(base, offset, n), device)
+    return table_powers(base, n, offset, device)

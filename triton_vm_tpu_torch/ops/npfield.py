@@ -61,9 +61,19 @@ def bfe_mul(a, b):
     return np.where(r >= _P, r - _P, r)
 
 
+# Calls of `powers_u64` with more than 2^12 words since the last reset:
+# a prove on the card builds no power table longer than that on the host
+# (ops/gf.py::power_tables); chip_smoke.py reads it as it reads the
+# kernels' launch counts.
+long_tables = {"powers_u64": 0}
+LONG_TABLE_WORDS = 1 << 12
+
+
 def powers_u64(base: int, offset: int, n: int):
     """[offset * base^i for i < n] as u64, by log-doubling: log2(n)
     vectorized block products instead of an O(n) Python loop."""
+    if n > LONG_TABLE_WORDS:
+        long_tables["powers_u64"] += 1
     out = np.empty(max(n, 1), np.uint64)
     out[0] = offset % P
     k = 1

@@ -2,11 +2,14 @@
 
 Transforms run along the last axis and batch over every leading axis
 (columns, and the 3 coefficients of an XFE tensor). Every transform goes
-through one dispatch point, `_rows`: a tensor on the card launches K4, the
-hand-written kernel of csrc/ntt.cu (ops/ntt_cuda.py), with the coset scale
-and the zero-padding fused into its load and the iNTT's offset^-i / n
-into its store; a tensor on the CPU takes the plain version, `_rows_plain`:
-the scales as `gf.mul`, then `_transform_plain`, the textbook iterative
+through one dispatch point, `_rows`, which takes each scale as a pair
+(base, factor), word i times factor * base^i: a tensor on the card
+launches K4, the hand-written kernel of csrc/ntt.cu (ops/ntt_cuda.py),
+with the coset scale and the zero-padding fused into its load and the
+iNTT's offset^-i / n into its store, each power formed in the kernel from
+two 2^12-word tables; a tensor on the CPU takes the plain version,
+`_rows_plain`: the scales as n-word tables (`_scales`) multiplied with
+`gf.mul`, then `_transform_plain`, the textbook iterative
 radix-2 network (a bit-reversal gather, then log2(n) butterfly stages over
 a (..., blocks, 2, half) view). There is no fallback from the kernel. Any
 correct transform gives the same field elements as `triton_vm_tpu.ops.ntt`
@@ -60,7 +63,7 @@ def _twiddles(n: int, root: int, device):
 
 
 def _scales(n: int, base: int, factor: int, device):
-    """factor * base^i for i < n."""
+    """factor * base^i for i < n: the plain version's scale tables."""
     return _cached(("sc", n, base, factor, str(device)),
                    lambda: gf.from_u64(powers_u64(base, factor, n), device))
 
@@ -90,17 +93,17 @@ def _transform_plain(x, root: int):
 
 def _rows_plain(x, root: int, length: int, pre=None, post=None):
     """What K4 computes, in eager torch: post * NTT_root of the rows of
-    pre * x (..., n_in) zero-padded to `length`; pre (n_in,) and post
-    (length,) or None."""
+    pre * x (..., n_in) zero-padded to `length`; pre and post each a scale
+    (base, factor), word i times factor * base^i, or None."""
     if pre is not None:
-        x = gf.mul(x, pre)
+        x = gf.mul(x, _scales(x.shape[-1], *pre, x.device))
     if length != x.shape[-1]:
         padded = torch.zeros(x.shape[:-1] + (length,), dtype=x.dtype,
                              device=x.device)
         padded[..., :x.shape[-1]] = x
         x = padded
     x = _transform_plain(x, root)
-    return x if post is None else gf.mul(x, post)
+    return x if post is None else gf.mul(x, _scales(length, *post, x.device))
 
 
 def _rows(x, root: int, length: int, pre=None, post=None, out=None):
@@ -153,13 +156,14 @@ def _step(x, length: int, kernel_words: int = 0) -> int:
     return max(1, x.numel() // max(1, x.shape[-1]))
 
 
-def _coset_scale(n: int, offset: int, device):
-    return None if offset % P == 1 else _scales(n, offset, 1, device)
+def _coset_scale(offset: int):
+    """offset^i: the coset NTT's input scale (None on the subgroup)."""
+    return None if offset % P == 1 else (offset % P, 1)
 
 
-def _unscale(n: int, offset: int, device):
-    """offset^-i / n for i < n: the iNTT's output scale."""
-    return _scales(n, bfe.inv(offset), bfe.inv(n % P), device)
+def _unscale(n: int, offset: int):
+    """offset^-i / n: the iNTT's output scale."""
+    return bfe.inv(offset), bfe.inv(n % P)
 
 
 def ntt(coeffs, offset: int = 1, length: int | None = None):
@@ -170,7 +174,7 @@ def ntt(coeffs, offset: int = 1, length: int | None = None):
     length = length or n
     assert length >= n
     root = bfe.primitive_root_of_unity(length)
-    pre = _coset_scale(n, offset, coeffs.device)
+    pre = _coset_scale(offset)
     return _blockwise(lambda b, o: _rows(b, root, length, pre, out=o),
                       coeffs, length, _step(coeffs, length))
 
@@ -179,7 +183,7 @@ def intt(values, offset: int = 1):
     """Values on offset * <omega_n> -> natural-order coefficients."""
     n = values.shape[-1]
     root = bfe.inv(bfe.primitive_root_of_unity(n))
-    post = _unscale(n, offset, values.device)
+    post = _unscale(n, offset)
     return _blockwise(lambda b, o: _rows(b, root, n, post=post, out=o),
                       values, n, _step(values, n))
 
@@ -189,10 +193,9 @@ def lde(values, expansion: int, in_offset: int = 1, out_offset: int = 7):
     out_offset * <omega_{expansion * n}> (arithmetic_domain.rs:203-212)."""
     n = values.shape[-1]
     length = n * expansion
-    dev = values.device
     inv_root = bfe.inv(bfe.primitive_root_of_unity(n))
     root = bfe.primitive_root_of_unity(length)
-    post, pre = _unscale(n, in_offset, dev), _coset_scale(n, out_offset, dev)
+    post, pre = _unscale(n, in_offset), _coset_scale(out_offset)
     return _blockwise(
         lambda b, o: _rows(_rows(b, inv_root, n, post=post), root, length,
                            pre, out=o),

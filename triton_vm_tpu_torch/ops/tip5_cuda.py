@@ -30,7 +30,7 @@ from . import gf
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _SRC = _PKG_DIR / "csrc" / "tip5.cu"
-_BUILD_DIR = _PKG_DIR / "_build"
+BUILD_DIR = _PKG_DIR / "_build"
 _NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 KERNELS = ("tip5_permutation_kernel", "tip5_sponge_rows_kernel")
@@ -43,6 +43,8 @@ launches_by_device: dict = {}
 
 _LOCK = threading.Lock()
 _LIB = None
+# seconds that each library built by this process took (nvcc's wall-clock)
+BUILD_SECONDS: dict = {}
 
 
 def reset_launch_counts():
@@ -67,10 +69,10 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _source_bytes(src: Path) -> bytes:
-    """The bytes of `src` and of every header it includes with
-    #include "..." (resolved beside it, recursively), so that an edited
-    header changes the build's hash."""
+def _source_bytes(src: Path, include_dirs=()) -> bytes:
+    """The bytes of `src` and of every file it includes with #include
+    "..." (resolved beside the includer, else in `include_dirs`,
+    recursively), so that an edited header changes the build's hash."""
     seen, out, todo = set(), [], [src]
     while todo:
         f = todo.pop()
@@ -79,48 +81,98 @@ def _source_bytes(src: Path) -> bytes:
         seen.add(f)
         text = f.read_bytes()
         out.append(text)
-        todo += [f.parent / m.decode() for m in
-                 re.findall(rb'^\s*#\s*include\s+"([^"]+)"', text, re.M)]
+        for m in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+            name = m.decode()
+            todo.append(next((d / name for d in (f.parent, *include_dirs)
+                              if (d / name).exists()), f.parent / name))
     return b"".join(out)
 
 
 def build(src: Path = _SRC) -> Path:
-    """Compile `src` (csrc/tip5.cu by default, csrc/quotient.cu for
-    ops/quotient_cuda.py, csrc/ntt.cu for ops/ntt_cuda.py;
-    tools/tip5_probe.py names other copies of tip5.cu to time them in
-    turns), if no library for this source and the headers it includes
+    """Compile `src` (csrc/tip5.cu by default, csrc/ntt.cu for
+    ops/ntt_cuda.py; the probes in tools/ name other copies to time them
+    in turns), if no library for this source and the files it includes
     exists yet, and return the library's path, lib<stem>_<hash>.so.
     ptxas's report (-v) is kept beside it, see `ptxas_report`."""
     src = Path(src)
     tag = hashlib.sha256(_source_bytes(src)
                          + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"lib{src.stem}_{tag}.so"
+    so = BUILD_DIR / f"lib{src.stem}_{tag}.so"
     if so.exists():
         return so
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".tmp{os.getpid()}")
     cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    BUILD_SECONDS[so] = time.perf_counter() - t0
     so.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, so)
     return so
 
 
+def build_parts(srcs, include_dirs=()) -> Path:
+    """Compile the translation units `srcs` with relocatable device code
+    (nvcc -rdc), all at once in parallel processes, and link them into one
+    shared library, lib<first stem>_<hash>.so, if it does not exist yet
+    (the hash over every unit and the files they include). ptxas's
+    reports of all units are kept beside it, as `build` keeps one."""
+    srcs = [Path(s) for s in srcs]
+    include_dirs = tuple(Path(d) for d in include_dirs)
+    tag = hashlib.sha256(b"".join(_source_bytes(s, include_dirs)
+                                  for s in srcs)
+                         + " ".join(_NVCC_FLAGS).encode()
+                         + b"rdc").hexdigest()[:16]
+    so = BUILD_DIR / f"lib{srcs[0].stem}_{tag}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compile_flags = [f for f in _NVCC_FLAGS if f != "-shared"]
+    objs = [so.with_name(f"{s.stem}_{tag}.o") for s in srcs]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [_nvcc(), *compile_flags, "-rdc=true", "-c",
+         *(f"-I{d}" for d in include_dirs), "-o", str(o), str(s)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    bad = [(s, p.returncode, log) for s, p, log in zip(srcs, procs, logs)
+           if p.returncode != 0]
+    if bad:
+        s, rc, log = bad[0]
+        raise RuntimeError(f"nvcc failed on {s.name} ({rc}):\n{log}")
+    tmp = so.with_suffix(f".tmp{os.getpid()}")
+    proc = subprocess.run([_nvcc(), _NVCC_FLAGS[0], "-shared", "-o",
+                           str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    BUILD_SECONDS[so] = time.perf_counter() - t0
+    so.with_suffix(".ptxas.txt").write_text("".join(logs))
+    os.replace(tmp, so)
+    for o in objs:
+        o.unlink()
+    return so
+
+
 def ptxas_report(so: Path | None = None, kernels=KERNELS) -> dict:
     """Per kernel named in `kernels` of a built library (the current
-    Tip5 source's by default): registers a thread, spill stores and
-    loads, stack and static shared memory in bytes, as ptxas -v reported
-    them at the build."""
+    Tip5 source's by default; every function ptxas reported on, by its
+    mangled name, if None): registers a thread, spill stores and loads,
+    stack and static shared memory in bytes, as ptxas -v reported them at
+    the build."""
     text = Path(so or build()).with_suffix(".ptxas.txt").read_text()
     out, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
-            cur = next((k for k in kernels if k in m.group(1)), None)
+            cur = (m.group(1) if kernels is None else
+                   next((k for k in kernels if k in m.group(1)), None))
             continue
         if cur is None:
             continue

@@ -30,8 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..fields.bfe import P
-from ..ops import gf, kernels, ntt, tip5_kernel
+from ..ops import gf, kernels, ntt, quotient_cuda, tip5_kernel
 from .sharding import Mesh, Sharded, all_to_all, gather, place, replicate
 
 
@@ -120,6 +119,16 @@ def sharded_merkle_layers(mesh: Mesh, digests: Sharded):
     return heap
 
 
+def quotient_chunk_rows(mesh: Mesh, device) -> int:
+    """K3's rows a launch sequence on a shard on `device`: the card's
+    quotient_cuda.CHUNK_ROWS split among the shards that share it (all of
+    them on a one-card host; a shard with a card of its own keeps all of
+    it), so that a card holds no more of K3's state than a one-device
+    prove."""
+    return quotient_cuda.CHUNK_ROWS // sum(d == device
+                                           for d in mesh.devices)
+
+
 def sharded_quotients(mesh: Mesh, main_q: Sharded, aux_q: Sharded,
                       trace_dom, quot_dom, challenges, quot_weights):
     """P4: the combined quotient (`prover._all_quotients_combined_device`)
@@ -141,11 +150,12 @@ def sharded_quotients(mesh: Mesh, main_q: Sharded, aux_q: Sharded,
     wss = [replicate(mesh, w) for w in ws]          # [phase][shard]
     outs = []
     for j, dev in enumerate(mesh.devices):
-        xs = gf.powers(quot_dom.generator, block, quot_dom.offset * pow(
-            quot_dom.generator, j * block, P) % P, dev)
+        points = quotient_cuda.Points(quot_dom.generator, quot_dom.offset,
+                                      block, start=j * block)
         outs.append(prover._quotients_on_rows(
-            main_r.parts[j], aux_r.parts[j].permute(1, 0, 2), xs, unit,
-            trace_dom, chs[j], [w[j] for w in wss]))
+            main_r.parts[j], aux_r.parts[j].permute(1, 0, 2), points, unit,
+            trace_dom, chs[j], [w[j] for w in wss],
+            quotient_chunk_rows(mesh, dev)))
     return gather(Sharded(mesh, outs, 1), mesh.lead)
 
 

@@ -968,26 +968,31 @@ def _quotients_on_domain(main, aux, dom, shift, trace_dom, ch, ws):
     values there (main int64 (NM, N), aux XFE (3, NA, N)); a row's next
     row lies `shift` rows ahead, cyclically. Returns XFE (3, N)."""
     return _quotients_on_rows(
-        main, aux, gf.powers(dom.generator, dom.length, dom.offset,
-                             main.device), shift, trace_dom, ch, ws)
+        main, aux, quotient_cuda.Points(dom.generator, dom.offset,
+                                        dom.length), shift, trace_dom, ch,
+        ws)
 
 
-def _quotients_on_rows(main, aux, xs, shift, trace_dom, ch, ws):
-    """The combined quotient at the N points xs from the committed values
-    in the first N columns of main int64 (NM, M) and aux XFE (3, NA, M);
-    row i's next row is row (i + shift) % M: the whole domain cyclically
-    where M = N, a shard's block followed by its halo where M = N + shift
-    (parallel/mesh.py). On a card one launch of K3 over the row tape
-    (ops/quotient_cuda.py) reads main and aux in place; on the CPU the
-    level tape runs in chunks of _QUOTIENT_CHUNK_ROWS rows. Returns XFE
-    (3, N)."""
+def _quotients_on_rows(main, aux, points, shift, trace_dom, ch, ws,
+                       chunk=quotient_cuda.CHUNK_ROWS):
+    """The combined quotient at the N points of `points` (a
+    `quotient_cuda.Points`: x_i = offset * generator^(start + i)) from
+    the committed values in the first N columns of main int64 (NM, M) and
+    aux XFE (3, NA, M); row i's next row is row (i + shift) % M: the whole
+    domain cyclically where M = N, a shard's block followed by its halo
+    where M = N + shift (parallel/mesh.py). On a card K3 runs the row tape
+    (ops/quotient_cuda.py), about 100 launches a chunk of `chunk` rows,
+    reading main and aux in place and forming the points itself; on the
+    CPU the level tape runs in chunks of _QUOTIENT_CHUNK_ROWS
+    rows. Returns XFE (3, N)."""
     dev = main.device
-    N, M = xs.shape[0], main.shape[1]
+    N, M = points.n, main.shape[1]
     gen_inv = bfe.inv(trace_dom.generator)
     if dev.type == "cuda":
         return quotient_cuda.quotients_on_rows(
-            aircomp.quotient_row_tape(), main, aux, xs, shift,
-            trace_dom.length, gen_inv, ch, torch.cat(ws, dim=1))
+            aircomp.quotient_row_tape(), main, aux, points, shift,
+            trace_dom.length, gen_inv, ch, torch.cat(ws, dim=1), chunk)
+    xs = points.tensor(dev)
     C_ = min(N, _QUOTIENT_CHUNK_ROWS)
     out = torch.empty((3, N), dtype=torch.int64, device=dev)
     for s in range(0, N, C_):

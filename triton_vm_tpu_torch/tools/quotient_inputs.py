@@ -26,11 +26,13 @@ def make_inputs(rng, n, device, *, halo=0, shift=4, permuted_aux=False,
     with M = n + halo (a mesh shard's block and halo, next rows `halo`
     ahead) or M = n (next rows `shift` ahead, cyclically), aux as a permuted
     view of (91, 3, M) storage if asked, every column cycling through 0, 1,
-    p - 1 and 2^32 with `edge`; random points xs, a trace domain of
-    2^log2_trace rows, random challenges and weights. With `device_draw`
-    main and aux are drawn on `device` (torch's generator, seeded from
-    rng), for sizes the host should not draw: words below 2^63, canonical
-    as drawn (K3's arithmetic does not branch on the data)."""
+    p - 1 and 2^32 with `edge`; the points offset * g^(start + i) for a
+    random g, offset and start (random-looking field elements), a trace
+    domain of 2^log2_trace rows, random challenges and weights. With
+    `device_draw` main and aux are drawn on `device` (torch's generator,
+    seeded from rng), for sizes the host should not draw: words below
+    2^63, canonical as drawn (K3's arithmetic does not branch on the
+    data)."""
     m = n + halo
     if device_draw:
         gen = torch.Generator(device).manual_seed(int(rng.integers(1 << 62)))
@@ -57,7 +59,9 @@ def make_inputs(rng, n, device, *, halo=0, shift=4, permuted_aux=False,
     trace_len = 1 << log2_trace
     return dict(
         main=main, aux=aux,
-        xs=gf.from_u64(rng.integers(0, P, n, dtype=np.uint64), device),
+        points=quotient_cuda.Points(
+            *(int(v) for v in rng.integers(2, P, 2, dtype=np.uint64)), n,
+            start=int(rng.integers(0, 1 << 20))),
         shift=halo or shift, trace_len=trace_len,
         gen_inv=bfe.inv(bfe.primitive_root_of_unity(trace_len)),
         ch=gf.from_u64(rng.integers(0, P, (3, NUM_CHALLENGES),
@@ -74,8 +78,9 @@ def level_tape(inp, start=0, stop=None):
     from ..air.master import master_air
     from ..stark import prover
 
-    main, aux, xs = inp["main"], inp["aux"], inp["xs"]
-    stop, m = xs.shape[0] if stop is None else stop, main.shape[1]
+    main, aux = inp["main"], inp["aux"]
+    stop, m = inp["points"].n if stop is None else stop, main.shape[1]
+    xs = inp["points"]._replace(n=stop).tensor(main.device)
     idx = torch.arange(start, stop, device=main.device)
     nidx = (idx + inp["shift"]) % m
     cuts = np.cumsum([0] + [len(master_air().constraints[ph])

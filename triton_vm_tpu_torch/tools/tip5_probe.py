@@ -142,6 +142,23 @@ def loops(kernel) -> list:
     return sorted(out, key=lambda x: x["total"])
 
 
+def sass_summary(so: Path, out_dir: Path | None = None) -> dict:
+    """Per function of a built library's SASS (cuobjdump), its
+    instructions and its local-memory loads and stores (LDL, STL: a stack
+    array or spills); the listing is written to out_dir if given."""
+    sass = subprocess.run([cuobjdump(), "-sass", str(so)], check=True,
+                          capture_output=True, text=True).stdout
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / f"{Path(so).stem}.sass").write_text(sass)
+    out = {}
+    for name, k in parse_sass(sass).items():
+        ops = collections.Counter(op.split(".")[0] for _, op, _ in k["insns"])
+        out[name] = {"insns": len(k["insns"]), "LDL": ops.get("LDL", 0),
+                     "STL": ops.get("STL", 0)}
+    return out
+
+
 def describe(src: Path, out_dir: Path) -> dict:
     so = tip5_cuda.build(src)
     sass = subprocess.run([cuobjdump(), "-sass", str(so)], check=True,
@@ -254,7 +271,7 @@ def main(argv=None):
                     help="a copy of tip5.cu; NEW names the package's own")
     ap.add_argument("--time", action="store_true",
                     help="also time K1 and K2 on the card, in turns")
-    ap.add_argument("--out", default=str(tip5_cuda._BUILD_DIR / "sass"),
+    ap.add_argument("--out", default=str(tip5_cuda.BUILD_DIR / "sass"),
                     help="directory for the SASS listings")
     args = ap.parse_args(argv)
     sources = [tip5_cuda._SRC if s in (None, "NEW") else Path(s).resolve()
