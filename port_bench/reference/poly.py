@@ -1,0 +1,163 @@
+"""Polynomial algebra over F_p and F_p^3 in plain Python, for the small
+polynomials a verifier handles (the `twenty-first` `Polynomial` calls of
+the reference's FRI and STIR verifiers).
+
+A polynomial is a list of coefficients, low-order first. Two field flavors:
+`bfe` polynomials hold Python ints; `xfe` polynomials hold (c0,c1,c2)
+tuples. The `F` parameter is the corresponding field module
+(`bfe` or `xfe` of this package).
+"""
+
+from __future__ import annotations
+
+from . import bfe as _bfe
+from . import xfe as _xfe
+from .bfe import P
+
+
+def _zero(F):
+    return 0 if F is _bfe else _xfe.ZERO
+
+
+def _one(F):
+    return 1 if F is _bfe else _xfe.ONE
+
+
+def trim(c, F=_bfe):
+    z = _zero(F)
+    n = len(c)
+    while n > 0 and c[n - 1] == z:
+        n -= 1
+    return list(c[:n])
+
+
+def degree(c, F=_bfe) -> int:
+    """Degree; -1 for the zero polynomial (matching twenty-first)."""
+    return len(trim(c, F)) - 1
+
+
+def add(a, b, F=_bfe):
+    n = max(len(a), len(b))
+    z = _zero(F)
+    return [F.add(a[i] if i < len(a) else z, b[i] if i < len(b) else z)
+            for i in range(n)]
+
+
+def sub(a, b, F=_bfe):
+    n = max(len(a), len(b))
+    z = _zero(F)
+    return [F.sub(a[i] if i < len(a) else z, b[i] if i < len(b) else z)
+            for i in range(n)]
+
+
+def mul(a, b, F=_bfe):
+    if not a or not b:
+        return []
+    z = _zero(F)
+    out = [z] * (len(a) + len(b) - 1)
+    for i, x in enumerate(a):
+        if x == z:
+            continue
+        for j, y in enumerate(b):
+            out[i + j] = F.add(out[i + j], F.mul(x, y))
+    return out
+
+
+def scalar_mul(a, s, F=_bfe):
+    return [F.mul(x, s) for x in a]
+
+
+def evaluate(a, x, F=_bfe):
+    """Horner evaluation."""
+    acc = _zero(F)
+    for c in reversed(a):
+        acc = F.add(F.mul(acc, x), c)
+    return acc
+
+
+def zerofier(roots, F=_bfe):
+    """prod (x - r) over the given roots."""
+    acc = [_one(F)]
+    for r in roots:
+        acc = mul(acc, [F.neg(r), _one(F)], F)
+    return acc
+
+
+def divide(num, den, F=_bfe):
+    """Polynomial long division -> (quotient, remainder)."""
+    den = trim(den, F)
+    if not den:
+        raise ZeroDivisionError("polynomial division by zero")
+    num = trim(num, F)
+    z = _zero(F)
+    dlead_inv = F.inv(den[-1])
+    quot = [z] * max(0, len(num) - len(den) + 1)
+    rem = list(num)
+    while len(rem) >= len(den) and trim(rem, F):
+        rem = trim(rem, F)
+        if len(rem) < len(den):
+            break
+        k = len(rem) - len(den)
+        q = F.mul(rem[-1], dlead_inv)
+        quot[k] = q
+        for i, d in enumerate(den):
+            rem[k + i] = F.sub(rem[k + i], F.mul(q, d))
+        rem = rem[:-1]
+    return trim(quot, F), trim(rem, F)
+
+
+def interpolate(xs, ys, F=_bfe):
+    """Lagrange interpolation (host, O(n^2)); small inputs only."""
+    assert len(xs) == len(ys)
+    if not xs:
+        return []
+    z = zerofier(xs, F)
+    out = [_zero(F)] * len(xs)
+    for xi, yi in zip(xs, ys):
+        num, rem = divide(z, [F.neg(xi), _one(F)], F)
+        assert not rem
+        denom = evaluate(num, xi, F)
+        term = scalar_mul(num, F.mul(yi, F.inv(denom)), F)
+        out = add(out, term, F)
+    return trim(out, F)
+
+
+def barycentric_evaluate(codeword, z, F=_xfe):
+    """Evaluate the interpolant of `codeword` over the unit root domain
+    {omega^i} (offset 1, length = len(codeword)) at the point z, using the
+    barycentric formula
+        f(z) = (z^n - 1)/n * sum_i  omega^i * y_i / (z - omega^i).
+    Matches twenty-first's `barycentric_evaluate` used by the FRI verifier
+    (triton-vm/src/low_degree_test/fri.rs:609-615).
+    codeword: list of XFE (or BFE lifted by caller); z: XFE.
+    """
+    n = len(codeword)
+    w = _bfe.primitive_root_of_unity(n) if n > 1 else 1
+    terms = []
+    wi = 1
+    for _ in range(n):
+        terms.append(_xfe.sub(z, _xfe.lift(wi)))
+        wi = wi * w % P
+    invs = _batch_inv_xfe(terms)
+    acc = _xfe.ZERO
+    wi = 1
+    for yi, inv_term in zip(codeword, invs):
+        y = yi if isinstance(yi, tuple) else _xfe.lift(yi)
+        acc = _xfe.add(acc, _xfe.bfe_mul(_xfe.mul(y, inv_term), wi))
+        wi = wi * w % P
+    zn = _xfe.mod_pow(z, n)
+    front = _xfe.bfe_mul(_xfe.sub(zn, _xfe.ONE), _bfe.inv(n % P))
+    return _xfe.mul(front, acc)
+
+
+def _batch_inv_xfe(values):
+    n = len(values)
+    prefix = [_xfe.ONE] * (n + 1)
+    for i, v in enumerate(values):
+        prefix[i + 1] = _xfe.mul(prefix[i], v)
+    acc = _xfe.inv(prefix[n])
+    out = [None] * n
+    for i in range(n - 1, -1, -1):
+        out[i] = _xfe.mul(prefix[i], acc)
+        acc = _xfe.mul(acc, values[i])
+    return out
