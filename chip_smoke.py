@@ -7,7 +7,11 @@ Run from the root of a checkout on a machine with an NVIDIA card:
     python3 chip_smoke.py --phases kernels,spin_65536
 
 Phases, in order (`--phases` names in brackets); any failure exits
-non-zero and prints no result line:
+non-zero and prints no result line. Every path that proves and verifies
+prints its prove's profile (the stage spans, and the spans within them
+as `stage/span`) and beside it its verify's (`verify` and its parts
+`verify/decode`, `AIR`, `DEEP`, `LDT`, `merkle`), each from a profiler
+session of its own:
 
 1. versions, the card's name and power limit, the build of both Tip5
    kernels, of K3 (its source generated from the row tape, its units
@@ -84,7 +88,8 @@ non-zero and prints no result line:
    row rejected in the VM (VMError); then the `combined` execution
    proven on the card with Stark() (STIR, cached LDE, both asserted),
    verified, a tampered word rejected, with the stage spans, the RAM
-   table's Bezout step as `fill main/RAM Bezout`, the peak device memory
+   table's Bezout step as `host table fill/RAM Bezout` (within `fill
+   main`), the peak device memory
    and the K1/K2 launches of the prove;
 11. [factorial_4096], [hash_chain], [merkle_auth] bench.py's configs of
    those names as models/baseline.py builds them: factorial input 500
@@ -1146,10 +1151,13 @@ def prove_and_verify(label, program, public_input, ldt_choice=None,
             f"power tables of more than {npfield.LONG_TABLE_WORDS} words "
             "on the host")
     before = all_launches()
+    profiler.start(f"{label} verify")
     t0 = time.perf_counter()
-    if not stark.verify(claim, proof):
-        raise AssertionError(f"{label}: verify rejected the proof")
+    accepted = stark.verify(claim, proof)
     verify_s = time.perf_counter() - t0
+    verify_profile = profiler.finish()
+    if not accepted:
+        raise AssertionError(f"{label}: verify rejected the proof")
     launches["verify"] = _launches_since(before)
     bad = list(proof.words)
     bad[len(bad) // 2] = (bad[len(bad) // 2] + 1) % P
@@ -1179,6 +1187,14 @@ def prove_and_verify(label, program, public_input, ldt_choice=None,
         f"prove, {launches['verify']['quotient_rows']} in the verify")
     if nested:
         log(f"{label} spans within stages (s): " + json.dumps(nested))
+    # the verify's profile: its span and the sub-spans of its parts
+    verify_spans = {}
+    for iv in verify_profile.intervals():
+        path = "/".join(iv.path)
+        verify_spans[path] = (verify_spans.get(path, 0.0)
+                              + (iv.end_ns - iv.start_ns) / 1e9)
+    log(f"{label} verify spans (s): " + json.dumps(
+        {path: round(sec, 4) for path, sec in verify_spans.items()}))
     log(f"{label} kernel launches: " + json.dumps(launches))
     return stark, proof, launches, nested
 
@@ -1502,7 +1518,8 @@ def drive_recursive_verifier(name, proofs):
     in-VM rejection of a tampered revealed row (VMError), then the
     `combined` execution proven with Stark() (STIR; the cache decision
     the heuristic makes, asserted), verified, a tampered word rejected,
-    the RAM table's Bezout span printed within `fill main`."""
+    the RAM table's Bezout span printed within `fill main`'s host table
+    fill."""
     import numpy as np
 
     from triton_vm_tpu_torch.fields.bfe import P
@@ -1547,8 +1564,9 @@ def drive_recursive_verifier(name, proofs):
                              "tampered revealed row")
     proof, nested = prove_at_height(name, built.programs["combined"], [],
                                     log2_height, _divined(built))
-    if "fill main/RAM Bezout" not in nested:
-        raise AssertionError(f"{name}: no RAM Bezout span within fill main")
+    if "host table fill/RAM Bezout" not in nested:
+        raise AssertionError(f"{name}: no RAM Bezout span within the host "
+                             "table fill")
     proofs[name] = proof
 
 

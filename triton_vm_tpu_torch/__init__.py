@@ -13,7 +13,7 @@ from .ldt.stir import Stir, StirParameters  # noqa: F401
 from .stark.proof_stream import Claim, Proof  # noqa: F401
 from .stark.prover import (Prover, ProvingError, Stark,  # noqa: F401
                            VerificationError, Verifier)
-from .utils import profiler  # noqa: F401
+from .utils import profiler
 from .vm.machine import (VM, NonDeterminism, PublicInput,  # noqa: F401
                          VMError, VMState)
 
@@ -30,8 +30,9 @@ def prove_program(program, public_input=None, non_determinism=None,
     elif not isinstance(public_input, PublicInput):
         public_input = PublicInput(list(public_input))
     non_determinism = non_determinism or NonDeterminism()
-    aet, public_output = VM.trace_execution(program, public_input,
-                                            non_determinism)
+    with profiler.span("VM trace", "VM"):
+        aet, public_output = VM.trace_execution(program, public_input,
+                                                non_determinism)
     claim = (Claim.about_program(program)
              .with_input(public_input.individual_tokens)
              .with_output(public_output))
@@ -43,8 +44,9 @@ def prove(stark, claim, program, non_determinism=None, seed=None):
     """Like the reference's `prove` (lib.rs:270-283); runs on
     `stark.device`."""
     non_determinism = non_determinism or NonDeterminism()
-    aet, public_output = VM.trace_execution(
-        program, PublicInput(claim.input), non_determinism)
+    with profiler.span("VM trace", "VM"):
+        aet, public_output = VM.trace_execution(
+            program, PublicInput(claim.input), non_determinism)
     if list(public_output) != list(claim.output):
         raise ProvingError("public output does not match claim")
     return stark.prove(claim, aet, seed=seed)

@@ -19,6 +19,7 @@ from ..fields import bfe, poly, xfe
 from ..fields.bfe import P
 from ..stark.arithmetic_domain import Domain
 from ..stark.proof_item import ProofItem
+from ..utils import profiler
 
 GENERATOR = 7  # BFieldElement::generator(): initial-domain offset
 
@@ -114,30 +115,36 @@ class Fri:
             proof_stream.enqueue(ProofItem("MerkleRoot", tree.root()))
             rounds.append((domain, cw, tree))
 
-        commit(self.domain, codeword)
-        for _ in range(self.num_rounds()):
-            challenge = proof_stream.sample_scalars(1)[0]
-            prev_domain, prev_cw, _ = rounds[-1]
-            commit(prev_domain.pow(2), _fold(prev_domain, prev_cw, challenge))
+        dev = codeword.device
+        with profiler.device_span("FRI commit", "LDT", dev):
+            commit(self.domain, codeword)
+            for _ in range(self.num_rounds()):
+                challenge = proof_stream.sample_scalars(1)[0]
+                prev_domain, prev_cw, _ = rounds[-1]
+                commit(prev_domain.pow(2),
+                       _fold(prev_domain, prev_cw, challenge))
 
-        last_cw = rounds[-1][1]
-        proof_stream.enqueue(ProofItem("FriCodeword", gfx.to_tuples(last_cw)))
-        # The reference interpolates via iNTT and sends the FULL-length
-        # coefficient vector, trailing zeros included (fri.rs:262-268;
-        # ArithmeticDomain::interpolate does not normalize). The encoding
-        # length is part of the Fiat-Shamir transcript, so match it.
-        proof_stream.enqueue(ProofItem("Polynomial",
-                                       gfx.to_tuples(ntt.intt(last_cw))))
+            last_cw = rounds[-1][1]
+            proof_stream.enqueue(ProofItem("FriCodeword",
+                                           gfx.to_tuples(last_cw)))
+            # The reference interpolates via iNTT and sends the FULL-length
+            # coefficient vector, trailing zeros included (fri.rs:262-268;
+            # ArithmeticDomain::interpolate does not normalize). The
+            # encoding length is part of the Fiat-Shamir transcript, so
+            # match it.
+            proof_stream.enqueue(ProofItem("Polynomial",
+                                           gfx.to_tuples(ntt.intt(last_cw))))
 
         # query phase
         a_indices = proof_stream.sample_indices(
             self.domain.length, self.num_collinearity_checks)
-        self._reveal(proof_stream, rounds[0], a_indices)
-        for round_number in range(len(rounds) - 1):
-            domain_r, _, _ = rounds[round_number]
-            b_indices = [(a + domain_r.length // 2) % domain_r.length
-                         for a in a_indices]
-            self._reveal(proof_stream, rounds[round_number], b_indices)
+        with profiler.device_span("FRI inclusion proofs", "LDT", dev):
+            self._reveal(proof_stream, rounds[0], a_indices)
+            for round_number in range(len(rounds) - 1):
+                domain_r, _, _ = rounds[round_number]
+                b_indices = [(a + domain_r.length // 2) % domain_r.length
+                             for a in a_indices]
+                self._reveal(proof_stream, rounds[round_number], b_indices)
 
         # transcript parity: sample & discard the verifier's barycentric
         # indeterminate (fri.rs:764-769)

@@ -230,7 +230,7 @@ class Stir:
                         for i in folded_queried_indices]
             if any(_point_on_domain(pt, next_domain) for pt in pt_lifts):
                 raise LdtError("quotient point on evaluation domain")
-            with profiler.device_span("STIR point evaluation", "LDT", dev):
+            with profiler.device_span("STIR query evaluation", "LDT", dev):
                 points_to_quotient_out = (_eval_folded_at(folded, pt_lifts)
                                           + list(ood_values))
             domain_values_out = pt_lifts + list(ood_queries)

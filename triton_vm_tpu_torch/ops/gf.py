@@ -15,10 +15,13 @@ against it element for element (tests/test_torch_field.py).
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from ..fields.bfe import P
+from ..utils import profiler
 
 I64 = torch.int64
 EPS = 0xFFFF_FFFF          # 2^32 - 1 == 2^64 mod p
@@ -101,8 +104,27 @@ def from_u64(arr, device="cpu"):
 
 
 def to_u64(t) -> np.ndarray:
-    """int64 tensor -> numpy uint64 with the same bit patterns."""
-    return t.detach().cpu().numpy().view(np.uint64)
+    """int64 tensor -> numpy uint64 with the same bit patterns. The port's
+    device-to-host boundary: reading a CUDA tensor blocks the host until
+    the card has computed it, and while a profiler session is open each
+    such read is counted (`profiler.device_read`)."""
+    if not profiler.recording() or t.device.type != "cuda":
+        return t.detach().cpu().numpy().view(np.uint64)
+    t0 = time.perf_counter()
+    out = t.detach().cpu().numpy().view(np.uint64)
+    profiler.device_read(out.nbytes, time.perf_counter() - t0)
+    return out
+
+
+def equal(a, b) -> bool:
+    """torch.equal: on a card, a blocking read of one flag, counted as
+    `to_u64` counts its reads."""
+    if not profiler.recording() or a.device.type != "cuda":
+        return torch.equal(a, b)
+    t0 = time.perf_counter()
+    out = torch.equal(a, b)
+    profiler.device_read(1, time.perf_counter() - t0)
+    return out
 
 
 def full(shape, value: int, device="cpu"):

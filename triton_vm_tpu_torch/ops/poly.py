@@ -158,7 +158,7 @@ def bezout_coefficients(roots):
         # / rev(rp) mod t^(n - 1)
         inv = inverse_series(rp.flip(0)[:n - 1], n - 1)
         a = mul(num.flip(0)[:n - 1], inv)[:n - 1].flip(0)
-        if not torch.equal(mul(a, rp), num):
+        if not gf.equal(mul(a, rp), num):
             raise ArithmeticError("the RAM pointers are not distinct: "
                                   "a rp + b rp' != 1")
     a = torch.cat([a, a.new_zeros(1)])

@@ -61,12 +61,14 @@ def _trace(msg, category=None, device=None):
     """Stage marker: closes the previous prover stage span (if any) and
     opens a new one in the global profiler; also prints under
     TVM_TRACE=1, on a card with the peak device memory so far. Call with
-    msg=None to close the final stage. On a CUDA device the stream is
-    synchronised first (every visible card's: a prover sharded over a
-    mesh works on several), so a span holds the device work its stage
-    enqueued."""
+    msg=None to close the final stage. While a profiler session is open
+    or under TVM_TRACE=1, a CUDA device's stream is synchronised first
+    (every visible card's: a prover sharded over a mesh works on
+    several), so a span holds the device work its stage enqueued; an
+    unprofiled prove runs without these synchronisations."""
     global _CURRENT_STAGE
-    if device is not None and device.type == "cuda":
+    if (device is not None and device.type == "cuda"
+            and (_TRACE or _profiler.recording())):
         for card in range(torch.cuda.device_count()):
             torch.cuda.synchronize(card)
     if _CURRENT_STAGE is not None:
@@ -338,7 +340,8 @@ class Prover:
         _trace("fill main", "witness", dev)
         main = extend_device.main_witness_dev(
             mt.fill_main_table(aet, padded_height=h, device=dev), dev)
-        main_rand = _drbg_bfes_rows(self.seed, range(NUM_MAIN), ntr)
+        with _profiler.span("main randomizers", "witness"):
+            main_rand = _drbg_bfes_rows(self.seed, range(NUM_MAIN), ntr)
 
         _trace("main LDE", "LDE", dev)
         main_rand = gf.from_u64(main_rand, dev)
@@ -366,12 +369,14 @@ class Prover:
 
         # ------------------------------------------------------- aux table
         _trace("extend aux", "witness", dev)
-        aux = extend_device.aux_witness_dev(
-            main, challenges,
-            _drbg_xfes_rows(self.seed, [NUM_MAIN + NUM_AUX], h)[0])
+        with _profiler.span("aux randomizers", "witness"):
+            batch_randomizer = _drbg_xfes_rows(
+                self.seed, [NUM_MAIN + NUM_AUX], h)[0]
+            aux_rand = _drbg_xfes_rows(
+                self.seed, range(NUM_MAIN, NUM_MAIN + NUM_AUX), ntr)
+        aux = extend_device.aux_witness_dev(main, challenges,
+                                            batch_randomizer)
         del main                                      # aux: (NA, 3, h)
-        aux_rand = _drbg_xfes_rows(
-            self.seed, range(NUM_MAIN, NUM_MAIN + NUM_AUX), ntr)
 
         _trace("aux LDE", "LDE", dev)
         # (NA, 3, .) storage: row k of the flattened (3 NA, .) view is
@@ -442,11 +447,13 @@ class Prover:
 
         # ------------------------------------------------------- OOD rows
         _trace("OOD", "DEEP", dev)
-        alpha = proof_stream.sample_scalars(1)[0]
-        omega_alpha = xfe.bfe_mul(alpha, trace_dom.generator)
-        alpha_pow_k = xfe.mod_pow(alpha, NUM_QUOTIENT_SEGMENTS)
-        zeta_alpha = xfe.bfe_mul(alpha, ZETA)
-        zeta_alpha_pow_k = xfe.mod_pow(zeta_alpha, NUM_QUOTIENT_SEGMENTS)
+        with _profiler.span("OOD reads and Fiat-Shamir", "DEEP"):
+            alpha = proof_stream.sample_scalars(1)[0]
+            omega_alpha = xfe.bfe_mul(alpha, trace_dom.generator)
+            alpha_pow_k = xfe.mod_pow(alpha, NUM_QUOTIENT_SEGMENTS)
+            zeta_alpha = xfe.bfe_mul(alpha, ZETA)
+            zeta_alpha_pow_k = xfe.mod_pow(zeta_alpha,
+                                           NUM_QUOTIENT_SEGMENTS)
 
         def point(x):
             return gfx.full((), tuple(x), dev)
@@ -459,25 +466,35 @@ class Prover:
         else:
             ood_fn = functools.partial(pmesh.sharded_ood_stage, mesh)
             aux_polys = aux_coeffs                      # (NA, 3, n), sharded
-        m1, a1, m2, a2, s1, s2 = ood_fn(
-            main_coeffs, aux_polys, segs, point(alpha), point(omega_alpha),
-            point(alpha_pow_k), point(zeta_alpha_pow_k),
-            gf.powers(ldt_dom.generator, L, ldt_dom.offset, dev))
-        ood_main_curr, ood_aux_curr = gfx.to_tuples(m1), gfx.to_tuples(a1)
-        ood_main_next, ood_aux_next = gfx.to_tuples(m2), gfx.to_tuples(a2)
-        ood_quot_p = gfx.to_tuples(s1)[:NUM_QUOTIENT_SEGMENTS]
-        ood_quot_r = gfx.to_tuples(s2)[1:]
-        proof_stream.enqueue(ProofItem("OutOfDomainMainRow", ood_main_curr))
-        proof_stream.enqueue(ProofItem("OutOfDomainAuxRow", ood_aux_curr))
-        proof_stream.enqueue(ProofItem("OutOfDomainMainRow", ood_main_next))
-        proof_stream.enqueue(ProofItem("OutOfDomainAuxRow", ood_aux_next))
-        proof_stream.enqueue(ProofItem("OutOfDomainQuotientSegments",
-                                       ood_quot_p))
-        proof_stream.enqueue(ProofItem("OutOfDomainQuotientSegments",
-                                       ood_quot_r))
+        with _profiler.device_span("OOD kernels", "DEEP", dev):
+            m1, a1, m2, a2, s1, s2 = ood_fn(
+                main_coeffs, aux_polys, segs, point(alpha),
+                point(omega_alpha), point(alpha_pow_k),
+                point(zeta_alpha_pow_k),
+                gf.powers(ldt_dom.generator, L, ldt_dom.offset, dev))
+        with _profiler.span("OOD reads and Fiat-Shamir", "DEEP"):
+            ood_main_curr = gfx.to_tuples(m1)
+            ood_aux_curr = gfx.to_tuples(a1)
+            ood_main_next = gfx.to_tuples(m2)
+            ood_aux_next = gfx.to_tuples(a2)
+            ood_quot_p = gfx.to_tuples(s1)[:NUM_QUOTIENT_SEGMENTS]
+            ood_quot_r = gfx.to_tuples(s2)[1:]
+            proof_stream.enqueue(ProofItem("OutOfDomainMainRow",
+                                           ood_main_curr))
+            proof_stream.enqueue(ProofItem("OutOfDomainAuxRow",
+                                           ood_aux_curr))
+            proof_stream.enqueue(ProofItem("OutOfDomainMainRow",
+                                           ood_main_next))
+            proof_stream.enqueue(ProofItem("OutOfDomainAuxRow",
+                                           ood_aux_next))
+            proof_stream.enqueue(ProofItem("OutOfDomainQuotientSegments",
+                                           ood_quot_p))
+            proof_stream.enqueue(ProofItem("OutOfDomainQuotientSegments",
+                                           ood_quot_r))
+            # the combination weights: DEEP, below, and the LDT
+            weights = _sample_combination_weights(proof_stream)
 
         # ----------------------------------------- combination + DEEP + LDT
-        weights = _sample_combination_weights(proof_stream)
         short_dom = ldt_dom if L <= Q else quot_dom
 
         _trace("weighted sum", "DEEP", dev)
@@ -588,173 +605,191 @@ class Verifier:
         intermediate values (the Fiat-Shamir events, challenges, OOD rows,
         weights, revealed rows, ...), all host values: Python ints and
         tuples, numpy uint64 arrays. models/recursive_verifier.py lays
-        them into Triton VM RAM."""
+        them into Triton VM RAM. The work is timed in a `verify` span
+        with the sub-spans decode, AIR, DEEP, LDT and merkle."""
+        with _profiler.span("verify", "verify"):
+            return self._verify(claim, proof, collector)
+
+    def _verify(self, claim: Claim, proof: Proof, collector):
         stark = self.parameters
-        proof_stream = ProofStream.decode(proof.words)
-        if collector is not None:
-            collector["fs_events"] = proof_stream.enable_fs_recording()
-        proof_stream.alter_fiat_shamir_state_with(claim.encode())
+        dev = stark.device
+        with _profiler.span("decode", "verify"):
+            proof_stream = ProofStream.decode(proof.words)
+            if collector is not None:
+                collector["fs_events"] = proof_stream.enable_fs_recording()
+            proof_stream.alter_fiat_shamir_state_with(claim.encode())
 
-        log2_padded_height = proof_stream.dequeue().expect("Log2PaddedHeight")
-        if log2_padded_height >= 32:
-            raise VerificationError("log2 padded height too large")
-        padded_height = 1 << log2_padded_height
-        ldt, ntr, trace_dom, rand_dom, quot_dom, ldt_dom = \
-            stark.derive_domains(padded_height)
-        trace_domain_len = rand_dom.length // 2
-        merkle_height = ldt_dom.length.bit_length() - 1
-        trace_gen = Domain(trace_domain_len).generator
+            log2_padded_height = proof_stream.dequeue().expect(
+                "Log2PaddedHeight")
+            if log2_padded_height >= 32:
+                raise VerificationError("log2 padded height too large")
+            padded_height = 1 << log2_padded_height
+            ldt, ntr, trace_dom, rand_dom, quot_dom, ldt_dom = \
+                stark.derive_domains(padded_height)
+            trace_domain_len = rand_dom.length // 2
+            merkle_height = ldt_dom.length.bit_length() - 1
+            trace_gen = Domain(trace_domain_len).generator
 
-        main_root = proof_stream.dequeue().expect("MerkleRoot")
-        challenges = Challenges(proof_stream.sample_scalars(SAMPLE_COUNT),
-                                claim)
-        aux_root = proof_stream.dequeue().expect("MerkleRoot")
+            main_root = proof_stream.dequeue().expect("MerkleRoot")
+            challenges = Challenges(proof_stream.sample_scalars(SAMPLE_COUNT),
+                                    claim)
+            aux_root = proof_stream.dequeue().expect("MerkleRoot")
 
-        initial_quot_weight = proof_stream.sample_scalars(1)[0]
-        num_constraints = sum(
-            len(cs) for cs in master_air().constraints.values())
-        quot_weights = _powers_xfe(initial_quot_weight, num_constraints)
-        quot_root = proof_stream.dequeue().expect("MerkleRoot")
+            initial_quot_weight = proof_stream.sample_scalars(1)[0]
+            num_constraints = sum(
+                len(cs) for cs in master_air().constraints.values())
+            quot_weights = _powers_xfe(initial_quot_weight, num_constraints)
+            quot_root = proof_stream.dequeue().expect("MerkleRoot")
 
-        alpha = proof_stream.sample_scalars(1)[0]
-        omega_alpha = xfe.bfe_mul(alpha, trace_gen)
-        alpha_pow_k = xfe.mod_pow(alpha, NUM_QUOTIENT_SEGMENTS)
-        zeta_alpha = xfe.bfe_mul(alpha, ZETA)
-        zeta_alpha_pow_k = xfe.mod_pow(zeta_alpha, NUM_QUOTIENT_SEGMENTS)
+            alpha = proof_stream.sample_scalars(1)[0]
+            omega_alpha = xfe.bfe_mul(alpha, trace_gen)
+            alpha_pow_k = xfe.mod_pow(alpha, NUM_QUOTIENT_SEGMENTS)
+            zeta_alpha = xfe.bfe_mul(alpha, ZETA)
+            zeta_alpha_pow_k = xfe.mod_pow(zeta_alpha, NUM_QUOTIENT_SEGMENTS)
 
-        ood_main_curr = proof_stream.dequeue().expect("OutOfDomainMainRow")
-        ood_aux_curr = proof_stream.dequeue().expect("OutOfDomainAuxRow")
-        ood_main_next = proof_stream.dequeue().expect("OutOfDomainMainRow")
-        ood_aux_next = proof_stream.dequeue().expect("OutOfDomainAuxRow")
-        ood_quot_p = proof_stream.dequeue().expect(
-            "OutOfDomainQuotientSegments")
-        ood_quot_r = proof_stream.dequeue().expect(
-            "OutOfDomainQuotientSegments")
+            ood_main_curr = proof_stream.dequeue().expect("OutOfDomainMainRow")
+            ood_aux_curr = proof_stream.dequeue().expect("OutOfDomainAuxRow")
+            ood_main_next = proof_stream.dequeue().expect("OutOfDomainMainRow")
+            ood_aux_next = proof_stream.dequeue().expect("OutOfDomainAuxRow")
+            ood_quot_p = proof_stream.dequeue().expect(
+                "OutOfDomainQuotientSegments")
+            ood_quot_r = proof_stream.dequeue().expect(
+                "OutOfDomainQuotientSegments")
 
-        # evaluate the AIR at the OOD point
-        ch = challenges.challenges
-        values = []
-        for phase in ("init", "cons", "tran", "term"):
-            steps, out_ids = _linearized_phase(phase)
-            if phase == "tran":
-                res = eval_host(steps, out_ids, ood_main_curr, ood_aux_curr,
-                                ch, ood_main_next, ood_aux_next)
-            else:
-                res = eval_host(steps, out_ids, ood_main_curr, ood_aux_curr,
-                                ch)
-            values.append(res)
-        init_vals, cons_vals, tran_vals, term_vals = values
+        with _profiler.span("AIR", "verify"):
+            # evaluate the AIR at the OOD point
+            ch = challenges.challenges
+            values = []
+            for phase in ("init", "cons", "tran", "term"):
+                steps, out_ids = _linearized_phase(phase)
+                if phase == "tran":
+                    res = eval_host(steps, out_ids, ood_main_curr,
+                                    ood_aux_curr, ch, ood_main_next,
+                                    ood_aux_next)
+                else:
+                    res = eval_host(steps, out_ids, ood_main_curr,
+                                    ood_aux_curr, ch)
+                values.append(res)
+            init_vals, cons_vals, tran_vals, term_vals = values
 
-        one = xfe.ONE
-        init_zi = xfe.inv(xfe.sub(alpha, one))
-        cons_zi = xfe.inv(xfe.sub(xfe.mod_pow(alpha, trace_domain_len), one))
-        except_last = xfe.sub(alpha, xfe.lift(bfe.inv(trace_gen)))
-        tran_zi = xfe.mul(except_last, cons_zi)
-        term_zi = xfe.inv(except_last)
+            one = xfe.ONE
+            init_zi = xfe.inv(xfe.sub(alpha, one))
+            cons_zi = xfe.inv(xfe.sub(xfe.mod_pow(alpha, trace_domain_len),
+                                      one))
+            except_last = xfe.sub(alpha, xfe.lift(bfe.inv(trace_gen)))
+            tran_zi = xfe.mul(except_last, cons_zi)
+            term_zi = xfe.inv(except_last)
 
-        summands = ([xfe.mul(v, init_zi) for v in init_vals]
-                    + [xfe.mul(v, cons_zi) for v in cons_vals]
-                    + [xfe.mul(v, tran_zi) for v in tran_vals]
-                    + [xfe.mul(v, term_zi) for v in term_vals])
-        ood_quotient_value = xfe.ZERO
-        for w, s in zip(quot_weights, summands):
-            ood_quotient_value = xfe.add(ood_quotient_value, xfe.mul(w, s))
+            summands = ([xfe.mul(v, init_zi) for v in init_vals]
+                        + [xfe.mul(v, cons_zi) for v in cons_vals]
+                        + [xfe.mul(v, tran_zi) for v in tran_vals]
+                        + [xfe.mul(v, term_zi) for v in term_vals])
+            ood_quotient_value = xfe.ZERO
+            for w, s in zip(quot_weights, summands):
+                ood_quotient_value = xfe.add(ood_quotient_value, xfe.mul(w, s))
 
-        derand_curr = xfe.ZERO
-        for i, x in enumerate(ood_quot_p):
-            derand_curr = xfe.add(derand_curr,
-                                  xfe.mul(xfe.mod_pow(alpha, i), x))
-        derand_zeta = xfe.ZERO
-        for i, x in enumerate(ood_quot_r):
-            derand_zeta = xfe.add(
-                derand_zeta, xfe.mul(xfe.mod_pow(zeta_alpha, i), x))
-        if ood_quotient_value != xfe.add(derand_curr, derand_zeta):
-            raise VerificationError("out-of-domain quotient value mismatch")
-
-        weights = _sample_combination_weights(proof_stream)
-
-        ood_curr_main_aux = _linear_sum(ood_main_curr, ood_aux_curr, weights)
-        ood_next_main_aux = _linear_sum(ood_main_next, ood_aux_next, weights)
-        w_qs = weights["quot_segments"]
-        ood_quot_p_value = xfe.ZERO
-        for x, w in zip(ood_quot_p, w_qs[:-1]):
-            ood_quot_p_value = xfe.add(ood_quot_p_value, xfe.mul(x, w))
-        ood_quot_r_value = xfe.ZERO
-        for x, w in zip(ood_quot_r, w_qs[1:]):
-            ood_quot_r_value = xfe.add(ood_quot_r_value, xfe.mul(x, w))
-
-        revealed_indices, revealed_values = ldt.verify(proof_stream,
-                                                       stark.device)
-        t = ldt.num_first_round_queries()
-        if len(revealed_indices) != t or len(revealed_values) != t:
-            raise VerificationError("wrong number of revealed LDT values")
-
-        def check_rows(root, rows, what):
-            if len(rows) != t:
-                raise VerificationError(f"wrong number of {what} rows")
-            auth = proof_stream.dequeue().expect("AuthenticationStructure")
-            arr = np.asarray(rows, np.uint64)
-            digests = _row_digests(arr.reshape(t, -1), stark.device)
-            if not merkle.verify_authentication_structure(
-                    tuple(root), ldt_dom.length, revealed_indices,
-                    digests, auth):
+            derand_curr = xfe.ZERO
+            for i, x in enumerate(ood_quot_p):
+                derand_curr = xfe.add(derand_curr,
+                                      xfe.mul(xfe.mod_pow(alpha, i), x))
+            derand_zeta = xfe.ZERO
+            for i, x in enumerate(ood_quot_r):
+                derand_zeta = xfe.add(
+                    derand_zeta, xfe.mul(xfe.mod_pow(zeta_alpha, i), x))
+            if ood_quotient_value != xfe.add(derand_curr, derand_zeta):
                 raise VerificationError(
-                    f"{what} codeword authentication failure")
-            return arr, digests, auth
+                    "out-of-domain quotient value mismatch")
 
-        main_arr, main_digests, main_auth = check_rows(
-            main_root, proof_stream.dequeue().expect("MasterMainTableRows"),
-            "main")
-        aux_arr, aux_digests, aux_auth = check_rows(
-            aux_root, proof_stream.dequeue().expect("MasterAuxTableRows"),
-            "aux")
-        quot_arr, quot_digests, quot_auth = check_rows(
-            quot_root,
-            proof_stream.dequeue().expect("QuotientSegmentsElements"),
-            "quotient")
+        with _profiler.span("DEEP", "verify"):
+            weights = _sample_combination_weights(proof_stream)
 
-        # batch-invert all 4*t DEEP denominators in one pass
-        ood_points = (alpha, omega_alpha, alpha_pow_k, zeta_alpha_pow_k)
-        denominators = [
-            xfe.sub(xfe.lift(ldt_dom.value(idx)), pt)
-            for idx in revealed_indices for pt in ood_points]
-        denominator_invs = _batch_inverse_xfe(denominators)
+            ood_curr_main_aux = _linear_sum(ood_main_curr, ood_aux_curr,
+                                            weights)
+            ood_next_main_aux = _linear_sum(ood_main_next, ood_aux_next,
+                                            weights)
+            w_qs = weights["quot_segments"]
+            ood_quot_p_value = xfe.ZERO
+            for x, w in zip(ood_quot_p, w_qs[:-1]):
+                ood_quot_p_value = xfe.add(ood_quot_p_value, xfe.mul(x, w))
+            ood_quot_r_value = xfe.ZERO
+            for x, w in zip(ood_quot_r, w_qs[1:]):
+                ood_quot_r_value = xfe.add(ood_quot_r_value, xfe.mul(x, w))
 
-        # all t combination-codeword checks in one vectorized host pass
-        from ..ops import npfield as nf
+        with _profiler.device_span("LDT", "verify", dev):
+            revealed_indices, revealed_values = ldt.verify(proof_stream,
+                                                           stark.device)
+            t = ldt.num_first_round_queries()
+            if len(revealed_indices) != t or len(revealed_values) != t:
+                raise VerificationError("wrong number of revealed LDT values")
 
-        w_main = np.asarray(weights["main"], np.uint64)    # (379, 3)
-        w_aux = np.asarray(weights["aux"], np.uint64)      # (91, 3)
-        w_qs_arr = np.asarray(w_qs, np.uint64)             # (segs+1, 3)
-        main_aux_elem = nf.xfe_add(
-            nf.xfe_sum(nf.xfe_bfe_mul(w_main[None], main_arr), 1),
-            nf.xfe_sum(nf.xfe_mul(w_aux[None], aux_arr), 1))   # (t, 3)
-        shared = nf.xfe_sum(
-            nf.xfe_mul(quot_arr[:, 1:-1], w_qs_arr[None, 1:-1]), 1)
-        quot_elem_p = nf.xfe_add(
-            nf.xfe_mul(quot_arr[:, 0], w_qs_arr[None, 0]), shared)
-        quot_elem_r = nf.xfe_add(
-            nf.xfe_mul(quot_arr[:, -1], w_qs_arr[None, -1]), shared)
+        with _profiler.device_span("merkle", "verify", dev):
+            def check_rows(root, rows, what):
+                if len(rows) != t:
+                    raise VerificationError(f"wrong number of {what} rows")
+                auth = proof_stream.dequeue().expect("AuthenticationStructure")
+                arr = np.asarray(rows, np.uint64)
+                digests = _row_digests(arr.reshape(t, -1), stark.device)
+                if not merkle.verify_authentication_structure(
+                        tuple(root), ldt_dom.length, revealed_indices,
+                        digests, auth):
+                    raise VerificationError(
+                        f"{what} codeword authentication failure")
+                return arr, digests, auth
 
-        invs = np.asarray(denominator_invs, np.uint64).reshape(t, 4, 3)
-        deep_vals = np.stack([
-            nf.xfe_mul(nf.xfe_sub(main_aux_elem,
-                                  np.asarray(ood_curr_main_aux, np.uint64)),
-                       invs[:, 0]),
-            nf.xfe_mul(nf.xfe_sub(main_aux_elem,
-                                  np.asarray(ood_next_main_aux, np.uint64)),
-                       invs[:, 1]),
-            nf.xfe_mul(nf.xfe_sub(quot_elem_p,
-                                  np.asarray(ood_quot_p_value, np.uint64)),
-                       invs[:, 2]),
-            nf.xfe_mul(nf.xfe_sub(quot_elem_r,
-                                  np.asarray(ood_quot_r_value, np.uint64)),
-                       invs[:, 3]),
-        ], axis=1)  # (t, 4, 3)
-        w_deep = np.asarray(weights["deep"], np.uint64)    # (4, 3)
-        acc = nf.xfe_sum(nf.xfe_mul(deep_vals, w_deep[None]), 1)
-        if not np.array_equal(acc, np.asarray(revealed_values, np.uint64)):
-            raise VerificationError("combination codeword mismatch")
+            main_arr, main_digests, main_auth = check_rows(
+                main_root,
+                proof_stream.dequeue().expect("MasterMainTableRows"), "main")
+            aux_arr, aux_digests, aux_auth = check_rows(
+                aux_root, proof_stream.dequeue().expect("MasterAuxTableRows"),
+                "aux")
+            quot_arr, quot_digests, quot_auth = check_rows(
+                quot_root,
+                proof_stream.dequeue().expect("QuotientSegmentsElements"),
+                "quotient")
+
+        with _profiler.span("DEEP", "verify"):
+            # batch-invert all 4*t DEEP denominators in one pass
+            ood_points = (alpha, omega_alpha, alpha_pow_k, zeta_alpha_pow_k)
+            denominators = [
+                xfe.sub(xfe.lift(ldt_dom.value(idx)), pt)
+                for idx in revealed_indices for pt in ood_points]
+            denominator_invs = _batch_inverse_xfe(denominators)
+
+            # all t combination-codeword checks in one vectorized host pass
+            from ..ops import npfield as nf
+
+            w_main = np.asarray(weights["main"], np.uint64)    # (379, 3)
+            w_aux = np.asarray(weights["aux"], np.uint64)      # (91, 3)
+            w_qs_arr = np.asarray(w_qs, np.uint64)             # (segs+1, 3)
+            main_aux_elem = nf.xfe_add(
+                nf.xfe_sum(nf.xfe_bfe_mul(w_main[None], main_arr), 1),
+                nf.xfe_sum(nf.xfe_mul(w_aux[None], aux_arr), 1))   # (t, 3)
+            shared = nf.xfe_sum(
+                nf.xfe_mul(quot_arr[:, 1:-1], w_qs_arr[None, 1:-1]), 1)
+            quot_elem_p = nf.xfe_add(
+                nf.xfe_mul(quot_arr[:, 0], w_qs_arr[None, 0]), shared)
+            quot_elem_r = nf.xfe_add(
+                nf.xfe_mul(quot_arr[:, -1], w_qs_arr[None, -1]), shared)
+
+            invs = np.asarray(denominator_invs, np.uint64).reshape(t, 4, 3)
+            deep_vals = np.stack([
+                nf.xfe_mul(nf.xfe_sub(
+                    main_aux_elem, np.asarray(ood_curr_main_aux, np.uint64)),
+                    invs[:, 0]),
+                nf.xfe_mul(nf.xfe_sub(
+                    main_aux_elem, np.asarray(ood_next_main_aux, np.uint64)),
+                    invs[:, 1]),
+                nf.xfe_mul(nf.xfe_sub(quot_elem_p,
+                                      np.asarray(ood_quot_p_value, np.uint64)),
+                           invs[:, 2]),
+                nf.xfe_mul(nf.xfe_sub(quot_elem_r,
+                                      np.asarray(ood_quot_r_value, np.uint64)),
+                           invs[:, 3]),
+            ], axis=1)  # (t, 4, 3)
+            w_deep = np.asarray(weights["deep"], np.uint64)    # (4, 3)
+            acc = nf.xfe_sum(nf.xfe_mul(deep_vals, w_deep[None]), 1)
+            if not np.array_equal(acc, np.asarray(revealed_values, np.uint64)):
+                raise VerificationError("combination codeword mismatch")
 
         if collector is not None:
             collector.update(

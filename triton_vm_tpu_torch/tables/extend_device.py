@@ -52,6 +52,7 @@ from ..air.challenges import ID as CH_ID
 from ..crypto import tip5
 from ..fields.bfe import P, R_INV
 from ..ops import gf, gfx
+from ..utils import profiler
 
 M = columns.main_index
 A = columns.aux_index
@@ -963,11 +964,13 @@ def _run_pipeline(main, challenges):
     """The 49 AIR aux columns, int64 (49, 3, h), on main's device."""
     ctx = _Ctx(main, challenges)
     C = _Collector(ctx.h)
-    for table in columns.TABLE_IDS:
-        for fac in _TABLE_FAC[table]:
-            fac(ctx, C)
-    scans = _phase_b1_fn(C)
-    return _phase_b2(ctx, scans, C.ld_ids, C.aff_ids)
+    with profiler.device_span("aux factors", "witness", ctx.device):
+        for table in columns.TABLE_IDS:
+            for fac in _TABLE_FAC[table]:
+                fac(ctx, C)
+    with profiler.device_span("aux scans", "witness", ctx.device):
+        scans = _phase_b1_fn(C)
+        return _phase_b2(ctx, scans, C.ld_ids, C.aff_ids)
 
 
 def _challenges_dev(challenges, device):
@@ -1103,14 +1106,16 @@ def main_witness_dev(main_np: np.ndarray, device):
     upload; equal to fill_derived_main_columns (tests/test_torch_witness.py)."""
     h = main_np.shape[0]
     n_air = columns.NUM_MAIN_AIR_COLUMNS
-    air = gf.from_u64(np.ascontiguousarray(main_np[:, :n_air].T), device)
-    tape = _derived_fill_tape(True)[0]
-    assert tape.main_cols.size == 0 or tape.main_cols.max() < n_air
-    out, cols = _derived_fill_fn(True, air, None, None)
-    main = torch.zeros((NUM_MAIN, h), dtype=gf.I64, device=air.device)
-    main[:n_air] = air
-    main[cols] = out[0]
-    return main
+    with profiler.device_span("main derived columns", "witness",
+                              torch.device(device)):
+        air = gf.from_u64(np.ascontiguousarray(main_np[:, :n_air].T), device)
+        tape = _derived_fill_tape(True)[0]
+        assert tape.main_cols.size == 0 or tape.main_cols.max() < n_air
+        out, cols = _derived_fill_fn(True, air, None, None)
+        main = torch.zeros((NUM_MAIN, h), dtype=gf.I64, device=air.device)
+        main[:n_air] = air
+        main[cols] = out[0]
+        return main
 
 
 def aux_witness_dev(main_dev, challenges, batch_randomizer: np.ndarray):
@@ -1123,11 +1128,13 @@ def aux_witness_dev(main_dev, challenges, batch_randomizer: np.ndarray):
     n_air = columns.NUM_AUX_AIR_COLUMNS
     ch = _challenges_dev(challenges, dev)
     air = _run_pipeline(main_dev, ch)                       # (49, 3, h)
-    tape = _derived_fill_tape(False)[0]
-    assert tape.aux_cols.size == 0 or tape.aux_cols.max() < n_air
-    out, cols = _derived_fill_fn(False, main_dev, air.permute(1, 0, 2), ch)
-    aux = torch.zeros((NUM_AUX, 3, h), dtype=gf.I64, device=dev)
-    aux[:n_air] = air
-    aux[cols] = out.permute(1, 0, 2)
-    aux[NUM_AUX - 1] = gfx.from_u64(batch_randomizer, dev)
-    return aux
+    with profiler.device_span("aux derived columns", "witness", dev):
+        tape = _derived_fill_tape(False)[0]
+        assert tape.aux_cols.size == 0 or tape.aux_cols.max() < n_air
+        out, cols = _derived_fill_fn(False, main_dev, air.permute(1, 0, 2),
+                                     ch)
+        aux = torch.zeros((NUM_AUX, 3, h), dtype=gf.I64, device=dev)
+        aux[:n_air] = air
+        aux[cols] = out.permute(1, 0, 2)
+        aux[NUM_AUX - 1] = gfx.from_u64(batch_randomizer, dev)
+        return aux

@@ -69,30 +69,31 @@ def _batch_inverse_or_zero(values: np.ndarray) -> np.ndarray:
 def fill_main_table(aet, padded_height=None, device="cuda") -> np.ndarray:
     """The main table from the execution trace, on the host; the RAM
     table's Bezout coefficients are computed on `device`."""
-    h = padded_height or aet.padded_height()
-    main = np.zeros((h, NUM_MAIN), np.uint64)
+    with profiler.span("host table fill", "witness"):
+        h = padded_height or aet.padded_height()
+        main = np.zeros((h, NUM_MAIN), np.uint64)
 
-    clk_jump_diffs = {"op_stack": [], "ram": [], "jump_stack": []}
-    _fill_op_stack(main, aet, clk_jump_diffs)
-    _fill_ram(main, aet, clk_jump_diffs, device)
-    _fill_jump_stack(main, aet, clk_jump_diffs)
-    _fill_processor(main, aet, clk_jump_diffs)
-    _fill_program(main, aet)
-    _fill_hash(main, aet)
-    _fill_cascade(main, aet)
-    _fill_lookup(main, aet)
-    _fill_u32(main, aet)
+        clk_jump_diffs = {"op_stack": [], "ram": [], "jump_stack": []}
+        _fill_op_stack(main, aet, clk_jump_diffs)
+        _fill_ram(main, aet, clk_jump_diffs, device)
+        _fill_jump_stack(main, aet, clk_jump_diffs)
+        _fill_processor(main, aet, clk_jump_diffs)
+        _fill_program(main, aet)
+        _fill_hash(main, aet)
+        _fill_cascade(main, aet)
+        _fill_lookup(main, aet)
+        _fill_u32(main, aet)
 
-    _pad_program(main, aet)
-    _pad_processor(main, aet)
-    _pad_op_stack(main, aet)
-    _pad_ram(main, aet)
-    _pad_jump_stack(main, aet)
-    _pad_hash(main, aet)
-    _pad_cascade(main, aet)
-    _pad_lookup(main, aet)
-    _pad_u32(main, aet)
-    return main
+        _pad_program(main, aet)
+        _pad_processor(main, aet)
+        _pad_op_stack(main, aet)
+        _pad_ram(main, aet)
+        _pad_jump_stack(main, aet)
+        _pad_hash(main, aet)
+        _pad_cascade(main, aet)
+        _pad_lookup(main, aet)
+        _pad_u32(main, aet)
+        return main
 
 
 def _fill_program(main, aet):

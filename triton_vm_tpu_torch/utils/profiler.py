@@ -12,17 +12,26 @@ Differences from the reference are deliberate:
   has no cheap `here!()` macro, and name paths are stable across
   refactors;
 - device work is asynchronous on a CUDA stream; callers that want honest
-  device timings must synchronise before closing a span (the prover
-  does at every stage boundary).
+  device timings must synchronise before closing a span. `device_span`
+  and the prover's stage markers do, but only while a session is open:
+  an unprofiled prove runs without those synchronisations.
+
+Besides the summed tree, a session keeps each span invocation as an
+`Interval` on the host's wall clock (`time.time_ns`, the clock a device
+trace can be put on) and counters (`count`) on the innermost open span.
+`totals()` sums the seconds and counts of every finished session of the
+process, by span path.
 
 Usage::
 
     from triton_vm_tpu_torch.utils import profiler
     profiler.start("prove fib")
     with profiler.span("LDE", category="LDE"):
+        profiler.count("rows", 1024)
         ...
     profile = profiler.finish().with_cycle_count(n)
     print(profile)
+    profile.intervals()   # [Interval(path, start_ns, end_ns, counts)]
 
 All hooks no-op unless `start()` was called, so library code can be
 instrumented unconditionally.
@@ -35,7 +44,15 @@ import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 
-__all__ = ["start", "finish", "span", "PerformanceProfile"]
+__all__ = ["start", "finish", "span", "device_span", "count", "recording",
+           "device_read", "totals", "reset_totals", "Interval", "Totals",
+           "PerformanceProfile"]
+
+# The counter family of the host's blocking reads of CUDA tensors
+# (ops/gf.py): reads, bytes read, seconds the host waited in them.
+DEVICE_READS = "device reads"
+DEVICE_READ_BYTES = "device reads.bytes"
+DEVICE_READ_SECONDS = "device reads.s"
 
 
 @dataclass
@@ -47,6 +64,33 @@ class _Task:
     start_time: float = 0.0
     num_invocations: int = 0
     total_duration: float = 0.0
+    counts: dict = field(default_factory=dict)
+
+
+@dataclass
+class Interval:
+    """One span invocation: its path (the names from the session's
+    top-level span down to it), its start and end on `time.time_ns`, and
+    the counts made while it was the innermost open span."""
+    path: tuple
+    start_ns: int
+    end_ns: int
+    counts: dict
+
+
+def _in_category(tasks, task) -> bool:
+    """Whether an ancestor of `task` has its category."""
+    parent = task.parent
+    while parent is not None:
+        if tasks[parent].category == task.category:
+            return True
+        parent = tasks[parent].parent
+    return False
+
+
+def _add_counts(into: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        into[name] = into.get(name, 0) + n
 
 
 class _Profiler:
@@ -54,6 +98,10 @@ class _Profiler:
         self.name = name
         self.t0 = time.perf_counter()
         self.active: list[int] = []
+        # per open invocation, innermost last: (start_ns, its counts)
+        self.open: list[tuple[int, dict]] = []
+        self.intervals: list[Interval] = []
+        self.counts: dict = {}  # counts made while no span was open
         # keyed by invocation path (tuple of span names root->leaf) so a
         # span run repeatedly (e.g. per FRI round) aggregates, mirroring
         # profiler.rs:443-489's InvocationPath keying.
@@ -69,9 +117,25 @@ class _Profiler:
             task = _Task(name, parent, len(self.active), category)
             self.tasks[path] = task
             self.order.append(path)
-        task.start_time = time.perf_counter()
         task.num_invocations += 1
         self.active.append(self.order.index(path))
+        self.open.append((time.time_ns(), {}))
+        task.start_time = time.perf_counter()
+
+    def _close(self) -> _Task:
+        """Close the innermost open span."""
+        path = self.order[self.active.pop()]
+        task = self.tasks[path]
+        task.total_duration += time.perf_counter() - task.start_time
+        start_ns, counts = self.open.pop()
+        self.intervals.append(Interval(path, start_ns, time.time_ns(),
+                                       counts))
+        _add_counts(task.counts, counts)
+        return task
+
+    def count(self, name: str, n):
+        counts = self.open[-1][1] if self.open else self.counts
+        counts[name] = counts.get(name, 0) + n
 
     def exit(self, name: str):
         """Close the innermost open span named `name`.
@@ -90,27 +154,48 @@ class _Profiler:
             return
         target = len(names) - 1 - names[::-1].index(name)
         while len(self.active) > target:
-            idx = self.active.pop()
-            task = self.tasks[self.order[idx]]
-            task.total_duration += time.perf_counter() - task.start_time
+            self._close()
 
     def finish(self) -> "PerformanceProfile":
         total = time.perf_counter() - self.t0
         while self.active:  # close unfinished spans, tagging them
-            idx = self.active.pop()
-            task = self.tasks[self.order[idx]]
-            task.total_duration += time.perf_counter() - task.start_time
-            task.name += " (unfinished)"
+            self._close().name += " (unfinished)"
+        tasks = [self.tasks[p] for p in self.order]
         category_times: dict[str, float] = {}
-        for t in self.tasks.values():
-            if t.category is not None:
+        for t in tasks:
+            # a span inside one of its own category is counted there
+            if t.category is not None and not _in_category(tasks, t):
                 category_times[t.category] = (
                     category_times.get(t.category, 0.0) + t.total_duration)
-        tasks = [self.tasks[p] for p in self.order]
-        return PerformanceProfile(self.name, total, tasks, category_times)
+        _TOTALS.sessions += 1
+        for path in self.order:
+            task = self.tasks[path]
+            _TOTALS.seconds[path] = (_TOTALS.seconds.get(path, 0.0)
+                                     + task.total_duration)
+            if task.counts:
+                _add_counts(_TOTALS.counts.setdefault(path, {}), task.counts)
+        if self.counts:
+            _add_counts(_TOTALS.counts.setdefault((), {}), self.counts)
+        return PerformanceProfile(self.name, total, tasks, category_times,
+                                  records=self.intervals, counts=self.counts)
+
+
+@dataclass
+class Totals:
+    """Every finished session of the process since import or the last
+    `reset_totals()`, summed: seconds by span path, counts by span path
+    (() for counts made with no span open) and counter name."""
+    sessions: int = 0
+    seconds: dict = field(default_factory=dict)
+    counts: dict = field(default_factory=dict)
+
+    def count(self, name: str):
+        """The counter `name` summed over every path."""
+        return sum(c.get(name, 0) for c in self.counts.values())
 
 
 _ACTIVE: _Profiler | None = None
+_TOTALS = Totals()
 
 
 def start(name: str) -> None:
@@ -144,15 +229,48 @@ def span(name: str, category: str | None = None):
 
 @contextmanager
 def device_span(name: str, category: str | None, device):
-    """`span` for work enqueued on `device`: on a CUDA device the stream
-    is synchronised before the span closes, so it holds its own device
-    work."""
+    """`span` for work enqueued on `device`: while a session is open, a
+    CUDA device's stream is synchronised before the span closes, so it
+    holds its own device work. Without a session nothing is synchronised."""
     with span(name, category):
         yield
-        if device.type == "cuda":
+        if _ACTIVE is not None and device.type == "cuda":
             import torch
 
             torch.cuda.synchronize(device)
+
+
+def recording() -> bool:
+    """Whether a session is open."""
+    return _ACTIVE is not None
+
+
+def count(name: str, n=1) -> None:
+    """Add n to the counter `name` of the innermost open span (of the
+    session where no span is open); no-op without a session."""
+    if _ACTIVE is not None:
+        _ACTIVE.count(name, n)
+
+
+def device_read(nbytes: int, seconds: float) -> None:
+    """Count one blocking read of a CUDA tensor by the host: its bytes and
+    the seconds the host waited in it (the DEVICE_READS family)."""
+    prof = _ACTIVE
+    if prof is not None:
+        prof.count(DEVICE_READS, 1)
+        prof.count(DEVICE_READ_BYTES, nbytes)
+        prof.count(DEVICE_READ_SECONDS, seconds)
+
+
+def totals() -> Totals:
+    """A copy of the process's totals over finished sessions."""
+    return Totals(_TOTALS.sessions, dict(_TOTALS.seconds),
+                  {path: dict(c) for path, c in _TOTALS.counts.items()})
+
+
+def reset_totals() -> None:
+    global _TOTALS
+    _TOTALS = Totals()
 
 
 def enter(name: str, category: str | None = None) -> None:
@@ -186,6 +304,8 @@ class PerformanceProfile:
     cycle_count: int | None = None
     padded_height: int | None = None
     ldt_domain_len: int | None = None
+    records: list[Interval] = field(default_factory=list)
+    counts: dict = field(default_factory=dict)  # made with no span open
 
     def with_cycle_count(self, n: int) -> "PerformanceProfile":
         self.cycle_count = n
@@ -204,6 +324,11 @@ class PerformanceProfile:
         for embedding a stage profile in machine-readable output."""
         return [(t.name, t.total_duration, t.category)
                 for t in self.tasks if t.parent is None]
+
+    def intervals(self) -> list[Interval]:
+        """Every span invocation of the session, in the order they
+        closed, on `time.time_ns`."""
+        return list(self.records)
 
     def _tree_prefix(self, index: int) -> str:
         task = self.tasks[index]
@@ -246,10 +371,11 @@ class PerformanceProfile:
                 cat = f"{t.category} ({cat_rel:5.1%})"
             lines.append(f"{label + extra:{name_col}} "
                          f"{_fmt_dur(t.total_duration):>10}  {rel:6.1%}  "
-                         f"{cat}".rstrip())
+                         f"{cat}{_fmt_counts(t.counts)}".rstrip())
         lines.append("-" * len(header))
         lines.append(f"{'total':{name_col}} "
-                     f"{_fmt_dur(self.total_time):>10}  {1:6.1%}")
+                     f"{_fmt_dur(self.total_time):>10}  {1:6.1%}"
+                     f"{_fmt_counts(self.counts)}")
         if self.category_times:
             lines.append("")
             lines.append("categories:")
@@ -264,6 +390,14 @@ class PerformanceProfile:
                 lines.append(f"{label}: {count} "
                              f"({count / self.total_time:,.0f}/s)")
         return "\n".join(lines)
+
+
+def _fmt_counts(counts: dict) -> str:
+    if not counts:
+        return ""
+    return "  [" + ", ".join(
+        f"{name} {n}" if isinstance(n, int) else f"{name} {n:.4g}"
+        for name, n in counts.items()) + "]"
 
 
 def _fmt_dur(seconds: float) -> str:

@@ -16,6 +16,7 @@ from ..crypto import tip5
 from ..fields.bfe import P
 from ..isa.instruction import Instruction
 from ..isa.program import Program
+from ..utils import profiler as _profiler
 
 DIGEST_LEN = 5
 NUM_HELPER_VARS = 6
@@ -814,7 +815,8 @@ class VM:
     def trace_execution(program, public_input=None, non_determinism=None):
         from .aet import AlgebraicExecutionTrace
 
-        state = VMState(program, public_input, non_determinism)
+        with _profiler.span("VM state", "VM"):
+            state = VMState(program, public_input, non_determinism)
         # C++ witness core (native/vm_core.cpp); bit-identical AET,
         # tests/test_native_vm.py. Falls through to the Python
         # interpreter when unavailable — and on any VM error, so the
@@ -828,11 +830,12 @@ class VM:
                            dict(state.ram)))
         if result is not None:
             return result
-        aet = AlgebraicExecutionTrace(program)
-        while not state.halting:
-            aet.record_state(state)
-            for call in state.step():
-                aet.record_co_processor_call(call)
+        with _profiler.span("interpreter run", "VM"):
+            aet = AlgebraicExecutionTrace(program)
+            while not state.halting:
+                aet.record_state(state)
+                for call in state.step():
+                    aet.record_co_processor_call(call)
         return aet, state.public_output
 
     @staticmethod

@@ -23,6 +23,8 @@ import threading
 
 import numpy as np
 
+from ..utils import profiler
+
 _LOCK = threading.Lock()
 _LIB = None
 _LIB_FAILED = False
@@ -218,73 +220,75 @@ def trace_execution_native(program, public_input, non_determinism):
     if lib is None:
         return None
 
-    ops, opcodes, args, sizes = _decode_program(program)
-    digest = np.array(program.hash(), np.uint64)
-    pub = np.array([t % P for t in public_input.individual_tokens],
-                   np.uint64)
-    sec = np.array([t % P for t in non_determinism.individual_tokens],
-                   np.uint64)
-    digs = np.array([list(d) for d in non_determinism.digests],
-                    np.uint64).reshape(-1, 5)
-    ram_kv = np.array([[int(k) % P, int(v) % P]
-                       for k, v in non_determinism.ram.items()],
-                      np.uint64).reshape(-1, 2)
-    padded = program.to_bwords() + [1]
-    while len(padded) % tip5.RATE:
-        padded.append(0)
-    padded = np.array(padded, np.uint64)
+    with profiler.span("native inputs", "VM"):
+        ops, opcodes, args, sizes = _decode_program(program)
+        digest = np.array(program.hash(), np.uint64)
+        pub = np.array([t % P for t in public_input.individual_tokens],
+                       np.uint64)
+        sec = np.array([t % P for t in non_determinism.individual_tokens],
+                       np.uint64)
+        digs = np.array([list(d) for d in non_determinism.digests],
+                        np.uint64).reshape(-1, 5)
+        ram_kv = np.array([[int(k) % P, int(v) % P]
+                           for k, v in non_determinism.ram.items()],
+                          np.uint64).reshape(-1, 2)
+        padded = program.to_bwords() + [1]
+        while len(padded) % tip5.RATE:
+            padded.append(0)
+        padded = np.array(padded, np.uint64)
+    with profiler.span("native run", "VM"):
+        h = lib.tvm_trace_execution(
+            ops.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            _u64p(opcodes), _u64p(args),
+            sizes.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(ops),
+            _u64p(digest),
+            _u64p(pub), len(pub), _u64p(sec), len(sec),
+            _u64p(digs), digs.shape[0], _u64p(ram_kv), ram_kv.shape[0],
+            _u64p(padded), len(padded))
+    with profiler.span("AET assembly", "VM"):
+        try:
+            if lib.tvm_error(h) != 0:
+                return None  # Python interpreter re-raises the typed error
 
-    h = lib.tvm_trace_execution(
-        ops.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        _u64p(opcodes), _u64p(args),
-        sizes.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(ops),
-        _u64p(digest),
-        _u64p(pub), len(pub), _u64p(sec), len(sec),
-        _u64p(digs), digs.shape[0], _u64p(ram_kv), ram_kv.shape[0],
-        _u64p(padded), len(padded))
-    try:
-        if lib.tvm_error(h) != 0:
-            return None  # Python interpreter re-raises the typed error
+            def pull(num_fn, copy_fn, width):
+                n = getattr(lib, "tvm_num_" + num_fn)(h)
+                out = np.empty((n, width), np.uint64)
+                if n:
+                    getattr(lib, "tvm_copy_" + copy_fn)(h, _u64p(out))
+                return out
 
-        def pull(num_fn, copy_fn, width):
-            n = getattr(lib, "tvm_num_" + num_fn)(h)
-            out = np.empty((n, width), np.uint64)
-            if n:
-                getattr(lib, "tvm_copy_" + copy_fn)(h, _u64p(out))
-            return out
+            proc = pull("processor_rows", "processor_rows", 39)
+            op_stack = pull("op_stack_rows", "op_stack_rows", 4)
+            ram = pull("ram_rows", "ram_rows", 4)
+            prog_hash = pull("program_hash_rows", "program_hash_rows", 67)
+            hash_rows = pull("hash_rows", "hash_rows", 67)
+            sponge_rows = pull("sponge_rows", "sponge_rows", 67)
+            u32 = pull("u32_entries", "u32_entries", 4)
+            cascade = pull("cascade_entries", "cascade_entries", 2)
+            out_tokens = np.zeros(lib.tvm_num_output(h), np.uint64)
+            if len(out_tokens):
+                lib.tvm_copy_output(h, _u64p(out_tokens))
+            lookup = np.zeros(256, np.uint64)
+            lib.tvm_copy_lookup_multiplicities(h, _u64p(lookup))
+            imult = np.zeros(len(ops), np.uint32)
+            lib.tvm_copy_instruction_multiplicities(
+                h, imult.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+        finally:
+            lib.tvm_free(h)
 
-        proc = pull("processor_rows", "processor_rows", 39)
-        op_stack = pull("op_stack_rows", "op_stack_rows", 4)
-        ram = pull("ram_rows", "ram_rows", 4)
-        prog_hash = pull("program_hash_rows", "program_hash_rows", 67)
-        hash_rows = pull("hash_rows", "hash_rows", 67)
-        sponge_rows = pull("sponge_rows", "sponge_rows", 67)
-        u32 = pull("u32_entries", "u32_entries", 4)
-        cascade = pull("cascade_entries", "cascade_entries", 2)
-        out_tokens = np.zeros(lib.tvm_num_output(h), np.uint64)
-        if len(out_tokens):
-            lib.tvm_copy_output(h, _u64p(out_tokens))
-        lookup = np.zeros(256, np.uint64)
-        lib.tvm_copy_lookup_multiplicities(h, _u64p(lookup))
-        imult = np.zeros(len(ops), np.uint32)
-        lib.tvm_copy_instruction_multiplicities(
-            h, imult.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
-    finally:
-        lib.tvm_free(h)
-
-    aet = AlgebraicExecutionTrace.__new__(AlgebraicExecutionTrace)
-    aet.program = program
-    aet.instruction_multiplicities = imult.tolist()
-    aet.processor_rows = proc
-    aet.op_stack_rows = list(map(tuple, op_stack.tolist()))
-    aet.ram_rows = list(map(tuple, ram.tolist()))
-    aet.program_hash_rows = prog_hash
-    aet.hash_rows = hash_rows
-    aet.sponge_rows = sponge_rows
-    aet.u32_entries = {
-        (_U32_NAMES[int(r[0])], int(r[1]), int(r[2])): int(r[3])
-        for r in u32}
-    aet.cascade_multiplicities = {int(r[0]): int(r[1]) for r in cascade}
-    aet.lookup_multiplicities = lookup.tolist()
-    assert LOOKUP_TABLE_HEIGHT == 256
-    return aet, [int(t) for t in out_tokens]
+        aet = AlgebraicExecutionTrace.__new__(AlgebraicExecutionTrace)
+        aet.program = program
+        aet.instruction_multiplicities = imult.tolist()
+        aet.processor_rows = proc
+        aet.op_stack_rows = list(map(tuple, op_stack.tolist()))
+        aet.ram_rows = list(map(tuple, ram.tolist()))
+        aet.program_hash_rows = prog_hash
+        aet.hash_rows = hash_rows
+        aet.sponge_rows = sponge_rows
+        aet.u32_entries = {
+            (_U32_NAMES[int(r[0])], int(r[1]), int(r[2])): int(r[3])
+            for r in u32}
+        aet.cascade_multiplicities = {int(r[0]): int(r[1]) for r in cascade}
+        aet.lookup_multiplicities = lookup.tolist()
+        assert LOOKUP_TABLE_HEIGHT == 256
+        return aet, [int(t) for t in out_tokens]
