@@ -98,8 +98,10 @@ def test_auto_selects_the_mesh_by_length(monkeypatch, mesh_env, threshold,
 
 def test_stir_transcript_with_intra_column_sharding(monkeypatch):
     """STIR's prover with the six-step transform in its initial iNTT and
-    in every round (TVM_MESH=8, TVM_INTRA_NTT_MIN=64) emits the transcript
-    of the single-device prover: the counterpart of the JAX package's
+    in every round's three transforms (onto the next domain, onto the
+    folded domain for the queried points, and the quotient's iNTT;
+    TVM_MESH=8, TVM_INTRA_NTT_MIN=64) emits the transcript of the
+    single-device prover: the counterpart of the JAX package's
     test_stir_device_prove_with_intra_column_sharding."""
     from triton_vm_tpu_torch.ldt.stir import Stir, StirParameters
     from triton_vm_tpu_torch.ops import gfx
@@ -127,5 +129,5 @@ def test_stir_transcript_with_intra_column_sharding(monkeypatch):
         transcripts.append((indices, ps.to_proof().words,
                             ntt_sharded.launches["ntt_sharded"]))
     (i0, w0, n0), (i1, w1, n1) = transcripts
-    assert n0 == 0 and n1 == 1 + 2 * len(stir.round_queries)
+    assert n0 == 0 and n1 == 1 + 3 * len(stir.round_queries)
     assert i1 == i0 and w1 == w0

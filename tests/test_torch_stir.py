@@ -1,8 +1,9 @@
 """The port's STIR low-degree test (triton_vm_tpu_torch.ldt.stir) against
 the JAX package's: parameter derivation, transcripts word for word,
 cross-package verification, rejections, the batched point evaluation, the
-device zerofier, and a whole fib(10) STIR proof on the CPU hashed to the
-JAX package's digest."""
+query evaluation by one transform onto the folded domain, the device
+zerofier, and a whole fib(10) STIR proof on the CPU hashed to the JAX
+package's digest."""
 
 import numpy as np
 import pytest
@@ -17,11 +18,12 @@ from triton_vm_tpu.stark.prover import Stark as JStark
 from triton_vm_tpu_torch.crypto import tip5
 from triton_vm_tpu_torch.fields import poly, xfe
 from triton_vm_tpu_torch.ldt import stir as st
-from triton_vm_tpu_torch.ldt.fri import LdtError
+from triton_vm_tpu_torch.ldt.fri import GENERATOR, LdtError
 from triton_vm_tpu_torch.models import example_programs as ex
 from triton_vm_tpu_torch.ops import gfx, ntt
 from triton_vm_tpu_torch.stark.arithmetic_domain import Domain
 from triton_vm_tpu_torch.stark.proof_stream import ProofStream
+from triton_vm_tpu_torch.utils import profiler
 
 torch.set_num_threads(2)
 
@@ -103,7 +105,8 @@ def transcripts(request):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TVM_STIR_DEVICE", "0")
         jindices = jstir.prove(list(cw_host), jps)
-    return dict(stir=stir, jstir=jstir, cw_host=cw_host, indices=indices,
+    return dict(stir=stir, jstir=jstir, cw=cw, cw_host=cw_host,
+                indices=indices,
                 words=ps.to_proof().words, jindices=jindices,
                 jwords=[int(w) for w in jps.to_proof().words])
 
@@ -111,6 +114,28 @@ def transcripts(request):
 def test_prove_transcript_equals_jax_host_loop(transcripts):
     assert transcripts["indices"] == transcripts["jindices"]
     assert transcripts["words"] == transcripts["jwords"]
+
+
+def test_prove_evaluates_only_ood_samples_point_by_point(transcripts,
+                                                         monkeypatch):
+    """The queried points' values come from the transform onto the folded
+    domain: the point evaluation sees only each full round's out-of-domain
+    samples (XFE points off the base field), and the transcript is the
+    JAX host loop's still."""
+    calls = []
+    eval_folded_at = st._eval_folded_at
+
+    def recording(coeffs, points):
+        calls.append(list(points))
+        return eval_folded_at(coeffs, points)
+
+    monkeypatch.setattr(st, "_eval_folded_at", recording)
+    stir = transcripts["stir"]
+    ps = ProofStream()
+    assert stir.prove(transcripts["cw"], ps) == transcripts["jindices"]
+    assert [len(c) for c in calls] == [ood for _, ood in stir.round_queries]
+    assert all(pt[1] or pt[2] for c in calls for pt in c)
+    assert ps.to_proof().words == transcripts["jwords"]
 
 
 def test_port_verifier_accepts_jax_transcript(transcripts):
@@ -156,6 +181,56 @@ def test_eval_folded_at_equals_poly_evaluate(n):
     got = st._eval_folded_at(gfx.from_u64(coeffs), points)
     host = [tuple(int(c) for c in row) for row in coeffs]
     assert got == [poly.evaluate(host, x, xfe) for x in points]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("n", [16, 512, 4096])
+def test_eval_on_folded_domain_equals_point_evaluation(n, seed):
+    """The values at queried indices of a folded domain (0, the last index,
+    raw indices that fold onto one index, random ones) from one transform
+    and a gather, against the batched point evaluation and `poly.evaluate`
+    at the same points."""
+    rng = np.random.default_rng(seed * 7919 + n)
+    k = 4
+    folded_domain = Domain(k * n, GENERATOR).pow(k)
+    coeffs = rng.integers(0, P, (n, 3), dtype=np.uint64)
+    raw = [0, k * n - 1, n, 2 * n - 1]
+    raw += [int(i) for i in rng.integers(0, k * n, 24)]
+    indices = st._unique(i % n for i in raw)
+    assert indices[:2] == [0, n - 1] and len(indices) < len(raw)
+    folded = gfx.from_u64(coeffs)
+    got = st._eval_on_folded_domain(folded, folded_domain, indices)
+    points = [xfe.lift(folded_domain.value(i)) for i in indices]
+    assert got == st._eval_folded_at(folded, points)
+    host = [tuple(int(c) for c in row) for row in coeffs]
+    assert got == [poly.evaluate(host, x, xfe) for x in points]
+
+
+@pytest.mark.parametrize("length", [32, 128])
+def test_eval_on_folded_domain_rejects_wrong_length(length):
+    folded = gfx.from_u64(np.ones((length, 3), np.uint64))
+    with pytest.raises(LdtError):
+        st._eval_on_folded_domain(folded, Domain(64, GENERATOR), [0, 1])
+
+
+def test_queried_points_counter_equals_unique_folded_indices():
+    """In a profiler session, each full round's `STIR query evaluation`
+    counts the unique folded indices it serves: the leaves that round's
+    response reveals."""
+    stir, _ = _stirs(*PARAMS[1])
+    cw, _ = _codeword(stir, stir.params.max_degree(), seed=8)
+    ps = ProofStream()
+    profiler.start("stir")
+    try:
+        stir.prove(cw, ps)
+    finally:
+        profile = profiler.finish()
+    got = [iv.counts["STIR queried points"] for iv in profile.intervals()
+           if iv.path[-1] == "STIR query evaluation"]
+    responses = [it.payload for it in ps.items
+                 if it.variant == "StirResponse"]
+    assert len(got) == len(stir.round_queries) >= 1
+    assert got == [len(r["queried_leaves"]) for r in responses[:-1]]
 
 
 @pytest.mark.parametrize("m", [1, 2, 3, 5, 16, 33])

@@ -12,13 +12,16 @@ stacking follow the reference.
 
 Compute placement: the prover keeps the codeword and its coefficients on
 the codeword's device the whole way (k-wise fold, NTT re-evaluation,
-batched point evaluation, the zerofier of the query points as a product
-of linear factors and the quotient by it, all in the NEXT evaluation
-domain); leaf rows are hashed by the K2 row sponge and the trees built by
-K1 (ops/tip5_kernel.py). The per-query coset work of the verifier (size
-k = the folding factor) and the interpolation through the ~hundred query
-points are scalar host math. The prover's work is timed in spans within
-the prover's `LDT` stage (`profiler.device_span`).
+the zerofier of the query points as a product of linear factors and the
+quotient by it, all in the NEXT evaluation domain). The folded
+polynomial's values at the queried points come from one forward
+transform onto the folded domain and a gather; only the out-of-domain
+samples take the batched point evaluation. Leaf rows are hashed by the K2
+row sponge and the trees built by K1 (ops/tip5_kernel.py). The per-query
+coset work of the verifier (size k = the folding factor) and the
+interpolation through the ~hundred query points are scalar host math.
+The prover's work is timed in spans within the prover's `LDT` stage
+(`profiler.device_span`).
 """
 
 from __future__ import annotations
@@ -231,8 +234,12 @@ class Stir:
             if any(_point_on_domain(pt, next_domain) for pt in pt_lifts):
                 raise LdtError("quotient point on evaluation domain")
             with profiler.device_span("STIR query evaluation", "LDT", dev):
-                points_to_quotient_out = (_eval_folded_at(folded, pt_lifts)
-                                          + list(ood_values))
+                profiler.count("STIR queried points",
+                               len(folded_queried_indices))
+                points_to_quotient_out = (
+                    _eval_on_folded_domain(folded, folded_domain,
+                                           folded_queried_indices)
+                    + list(ood_values))
             domain_values_out = pt_lifts + list(ood_queries)
             # O(points^2)
             with profiler.device_span("STIR host interpolation", "LDT",
@@ -538,6 +545,21 @@ def _eval_folded_at(coeffs, points):
         inner = gfx.reduce_sum(gfx.mul(blocks, small[:, :, None, :]), -1)
         out += gfx.to_tuples(gfx.reduce_sum(gfx.mul(inner, large), -1))
     return out
+
+
+def _eval_on_folded_domain(folded, folded_domain: Domain, indices):
+    """The values of the polynomial with coefficients `folded` (XFE (3, n),
+    low to high) at `folded_domain.value(i)` for each i in `indices`, as
+    host XFE tuples. n must be the folded domain's length: the values are
+    entries of one forward transform of `folded` onto that domain (K4 on a
+    card, spread over an active mesh when tall), gathered on the device
+    and read back in one read."""
+    if folded.shape[-1] != folded_domain.length:
+        raise LdtError(f"{folded.shape[-1]} folded coefficients for a "
+                       f"folded domain of {folded_domain.length} points")
+    evals = ntt_sharded.xfe_ntt_auto(folded, folded_domain.offset)
+    idx = torch.as_tensor(indices, dtype=torch.int64, device=folded.device)
+    return gfx.to_tuples(evals.index_select(1, idx))
 
 
 def _eval_poly_on_domain_dev(polys, domain: Domain, device):
