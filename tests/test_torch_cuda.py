@@ -148,9 +148,10 @@ def test_jit_lde_on_the_card_equals_cpu(cuda):
 
 def test_stir_transcript_on_the_card_equals_cpu(cuda):
     """Two full STIR rounds: K2 on leaf rows of 12, K1 trees, the batched
-    point evaluation at the out-of-domain samples, the transform onto the
-    folded domain for the queried points and the NTT re-evaluation, all
-    on the card."""
+    point evaluation at the out-of-domain samples, the transforms onto the
+    folded domain for the queried points and the interpolant, the
+    quotient's transform of three rows and the NTT re-evaluation, all on
+    the card."""
     from triton_vm_tpu_torch.ldt.stir import Stir, StirParameters
     from triton_vm_tpu_torch.ops import gfx, ntt
     from triton_vm_tpu_torch.stark.proof_stream import ProofStream

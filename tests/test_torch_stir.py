@@ -1,9 +1,9 @@
 """The port's STIR low-degree test (triton_vm_tpu_torch.ldt.stir) against
 the JAX package's: parameter derivation, transcripts word for word,
 cross-package verification, rejections, the batched point evaluation, the
-query evaluation by one transform onto the folded domain, the device
-zerofier, and a whole fib(10) STIR proof on the CPU hashed to the JAX
-package's digest."""
+query evaluation by one transform onto the folded domain, the zerofier and
+the interpolant of a round's points as coefficients, and a whole fib(10)
+STIR proof on the CPU hashed to the JAX package's digest."""
 
 import numpy as np
 import pytest
@@ -199,7 +199,8 @@ def test_eval_on_folded_domain_equals_point_evaluation(n, seed):
     indices = st._unique(i % n for i in raw)
     assert indices[:2] == [0, n - 1] and len(indices) < len(raw)
     folded = gfx.from_u64(coeffs)
-    got = st._eval_on_folded_domain(folded, folded_domain, indices)
+    got = gfx.to_tuples(st._eval_on_folded_domain(folded, folded_domain,
+                                                  indices))
     points = [xfe.lift(folded_domain.value(i)) for i in indices]
     assert got == st._eval_folded_at(folded, points)
     host = [tuple(int(c) for c in row) for row in coeffs]
@@ -233,21 +234,76 @@ def test_queried_points_counter_equals_unique_folded_indices():
     assert got == [len(r["queried_leaves"]) for r in responses[:-1]]
 
 
-@pytest.mark.parametrize("m", [1, 2, 3, 5, 16, 33])
-def test_zerofier_on_domain_equals_host_zerofier(m, monkeypatch):
-    """The device zerofier of m points against `poly.zerofier` evaluated at
-    every point of a coset, in column blocks of 64 factors, so that the
-    domain spans several blocks."""
-    monkeypatch.setattr(st, "_ZEROFIER_BLOCK_ELEMS", 64)
+# Numbers of interpolation points: one to a full block of 256
+QUOTIENT_SET_SIZES = [1, 2, 3, 5, 16, 33, 145, 256]
+
+
+def _quotient_sets(m, seed):
+    """Three sets of m distinct points, as (domain indices, XFE points) of
+    Domain(1024, GENERATOR): all lifted base values (points of the domain),
+    all XFE, and half and half."""
+    rng = np.random.default_rng(seed)
+    sets = []
+    for num_xfe in (0, m, m // 2):
+        indices = [int(i) for i in rng.choice(1024, m - num_xfe,
+                                              replace=False)]
+        ood = [tuple(int(c) for c in rng.integers(0, P, 3, dtype=np.uint64))
+               for _ in range(num_xfe)]
+        sets.append((indices, ood))
+    return Domain(1024, GENERATOR), sets
+
+
+@pytest.mark.parametrize("m", QUOTIENT_SET_SIZES)
+def test_zerofier_equals_host_zerofier(m):
+    """The zerofier's coefficients against `poly.zerofier`, and their values
+    on a coset (one transform) against `poly.evaluate` at every point."""
+    domain, sets = _quotient_sets(m, seed=m)
+    coset = Domain(512, 7)
+    for indices, ood in sets:
+        points = [xfe.lift(domain.value(i)) for i in indices] + ood
+        zb, z = st._zerofier([pt[0] for pt in points[:len(indices)]], ood)
+        want = poly.zerofier(points, xfe)
+        assert [int(c) for c in zb] == poly.zerofier(
+            [domain.value(i) for i in indices])
+        assert [tuple(int(c) for c in row) for row in z] == want
+        (got,) = st._eval_poly_on_domain_dev([z], coset, "cpu")
+        assert gfx.to_tuples(got) == [
+            poly.evaluate(want, xfe.lift(coset.value(i)), xfe)
+            for i in range(coset.length)]
+
+
+@pytest.mark.parametrize("m", QUOTIENT_SET_SIZES)
+def test_interpolant_equals_host_interpolate(m):
+    """The batched interpolant's coefficients against `poly.interpolate`,
+    word for word (zero-padded to m), for points of a domain, XFE points,
+    and both."""
+    domain, sets = _quotient_sets(m, seed=1000 + m)
     rng = np.random.default_rng(m)
-    points = [tuple(int(c) for c in rng.integers(0, P, 3, dtype=np.uint64))
-              for _ in range(m - 1)]
-    points.append(xfe.lift(int(rng.integers(0, P, dtype=np.uint64))))
-    domain = Domain(128, 7)
-    got = gfx.to_tuples(st._zerofier_on_domain_dev(points, domain, "cpu"))
-    z = poly.zerofier(points, xfe)
-    assert got == [poly.evaluate(z, xfe.lift(domain.value(i)), xfe)
-                   for i in range(domain.length)]
+    for indices, ood in sets:
+        points = [xfe.lift(domain.value(i)) for i in indices] + ood
+        values = rng.integers(0, P, (m, 3), dtype=np.uint64)
+        zerofier = st._zerofier([domain.value(i) for i in indices], ood)
+        got = st._interpolate_dev(domain, indices, ood,
+                                  gfx.from_u64(values), zerofier)
+        want = poly.interpolate(
+            points, [tuple(int(c) for c in row) for row in values], xfe)
+        assert gfx.to_tuples(got) == want + [xfe.ZERO] * (m - len(want))
+
+
+@pytest.mark.parametrize("repeated", ["domain point", "xfe point"])
+def test_interpolant_raises_on_repeated_point(repeated):
+    domain, [(indices, _), (_, ood), _] = _quotient_sets(8, seed=5)
+    if repeated == "domain point":
+        indices, ood = indices + indices[:1], []
+    else:
+        indices, ood = [], ood + ood[:1]
+    values = gfx.from_u64(np.ones((len(indices) + len(ood), 3), np.uint64))
+    zerofier = st._zerofier([domain.value(i) for i in indices], ood)
+    with pytest.raises(ZeroDivisionError):
+        st._interpolate_dev(domain, indices, ood, values, zerofier)
+    with pytest.raises(ZeroDivisionError):
+        poly.interpolate([xfe.lift(domain.value(i)) for i in indices] + ood,
+                         gfx.to_tuples(values), xfe)
 
 
 def test_fold_device_equals_fold_polynomial():

@@ -11,16 +11,20 @@ oversampling margin for unique folded indices) and the Merkle leaf
 stacking follow the reference.
 
 Compute placement: the prover keeps the codeword and its coefficients on
-the codeword's device the whole way (k-wise fold, NTT re-evaluation,
-the zerofier of the query points as a product of linear factors and the
-quotient by it, all in the NEXT evaluation domain). The folded
-polynomial's values at the queried points come from one forward
-transform onto the folded domain and a gather; only the out-of-domain
-samples take the batched point evaluation. Leaf rows are hashed by the K2
-row sponge and the trees built by K1 (ops/tip5_kernel.py). The per-query
-coset work of the verifier (size k = the folding factor) and the
-interpolation through the ~hundred query points are scalar host math.
-The prover's work is timed in spans within the prover's `LDT` stage
+the codeword's device the whole way (k-wise fold, NTT re-evaluation, and
+the quotient by the round's points in the NEXT evaluation domain). The
+folded polynomial's values at the queried points come from one forward
+transform onto the folded domain and a gather, its values at the
+out-of-domain samples from power tables built on the host. The
+interpolant through a round's points and their zerofier are coefficients:
+the zerofier from a product tree in base-field arithmetic on the host,
+the interpolant from two transforms onto the folded domain and a few
+batched products on the device; one transform of the two with the degree
+correction evaluates them on the next domain. Leaf rows are hashed by the
+K2 row sponge and the trees built by K1 (ops/tip5_kernel.py). The
+verifier's per-query coset work (size k = the folding factor) and its
+interpolation through each round's points are scalar host math. The
+prover's work is timed in spans within the prover's `LDT` stage
 (`profiler.device_span`).
 """
 
@@ -33,9 +37,10 @@ import numpy as np
 import torch
 
 from ..crypto import merkle
-from ..fields import poly, xfe
+from ..fields import bfe, poly, xfe
 from ..fields.bfe import P
 from ..ops import gf, gfx, ntt, ntt_sharded, tip5_kernel
+from ..ops import npfield as nf
 from ..stark.arithmetic_domain import Domain
 from ..stark.proof_item import ProofItem
 from ..utils import profiler
@@ -185,7 +190,14 @@ class Stir:
         field generator, whose order divides no power of 2). Each round
         checks it: if a sampled out-of-domain query or a queried point does
         land on the next domain (probability ~2^-170 per proof), this
-        raises LdtError, as the JAX package's device loop does."""
+        raises LdtError, as the JAX package's device loop does.
+
+        A full round's m points are its queried points of the folded
+        domain and its out-of-domain samples. The interpolant through them
+        (`_interpolate_dev`) and their zerofier Z (`_zerofier`, deg Z = m)
+        are coefficients, and one transform of three rows evaluates them
+        and the degree correction on the next domain, where the quotient
+        (f - interpolant) / Z * correction is pointwise."""
         domain = self.domain
         if codeword.shape[-1] != domain.length:
             raise LdtError("initial codeword length mismatch")
@@ -229,33 +241,31 @@ class Stir:
             proof_stream.enqueue(ProofItem("StirResponse", response))
 
             # witness polynomial for the next round (stir.rs:937-967)
-            pt_lifts = [xfe.lift(folded_domain.value(i))
-                        for i in folded_queried_indices]
-            if any(_point_on_domain(pt, next_domain) for pt in pt_lifts):
+            queried_points = [folded_domain.value(i)
+                              for i in folded_queried_indices]
+            if any(_point_on_domain(xfe.lift(pt), next_domain)
+                   for pt in queried_points):
                 raise LdtError("quotient point on evaluation domain")
             with profiler.device_span("STIR query evaluation", "LDT", dev):
                 profiler.count("STIR queried points",
                                len(folded_queried_indices))
-                points_to_quotient_out = (
-                    _eval_on_folded_domain(folded, folded_domain,
-                                           folded_queried_indices)
-                    + list(ood_values))
-            domain_values_out = pt_lifts + list(ood_queries)
-            # O(points^2)
+                in_domain_values = _eval_on_folded_domain(
+                    folded, folded_domain, folded_queried_indices)
+            with profiler.device_span("STIR zerofier", "LDT", dev):
+                zerofier = _zerofier(queried_points, ood_queries)
             with profiler.device_span("STIR host interpolation", "LDT",
                                       dev):
-                answer_poly = poly.interpolate(domain_values_out,
-                                               points_to_quotient_out, xfe)
+                values = torch.cat([in_domain_values,
+                                    _xfe_tensor(ood_values, dev)], dim=1)
+                answer_poly = _interpolate_dev(
+                    folded_domain, folded_queried_indices, ood_queries,
+                    values, zerofier)
 
             dc_randomness = proof_stream.sample_scalars(1)[0]
-            dc_coeffs = _powers(dc_randomness,
-                                len(points_to_quotient_out) + 1)
-            with profiler.device_span("STIR zerofier", "LDT", dev):
-                z_evals = _zerofier_on_domain_dev(domain_values_out,
-                                                  next_domain, dev)
+            dc_coeffs = _powers(dc_randomness, values.shape[-1] + 1)
             with profiler.device_span("STIR quotient", "LDT", dev):
-                ans_evals, dc_evals = _eval_poly_on_domain_dev(
-                    [answer_poly, dc_coeffs], next_domain, dev)
+                ans_evals, dc_evals, z_evals = _eval_poly_on_domain_dev(
+                    [answer_poly, dc_coeffs, zerofier[1]], next_domain, dev)
                 next_vals = _quotient_next_vals(folded_evals, ans_evals,
                                                 z_evals, dc_evals)
                 coeffs = ntt_sharded.xfe_intt_auto(next_vals,
@@ -481,11 +491,6 @@ def _subsequent_in_domain_answers(quotienting, queries,
 
 # ------------------------------------------------------ device prove pieces
 
-# Largest (points x coefficients) block one batched evaluation pass forms.
-_EVAL_BLOCK_ELEMS = 1 << 22
-# Largest (points x domain) block of linear factors the zerofier multiplies.
-_ZEROFIER_BLOCK_ELEMS = 1 << 23
-
 
 def _pad_to(v, n):
     """Zero-pad the last axis of v to length n."""
@@ -494,6 +499,12 @@ def _pad_to(v, n):
     out = torch.zeros(v.shape[:-1] + (n,), dtype=v.dtype, device=v.device)
     out[..., :v.shape[-1]] = v
     return out
+
+
+def _xfe_tensor(values, device):
+    """Host XFE tuples (or a numpy u64 (k, 3) array) -> XFE (3, k)."""
+    return gfx.from_u64(np.asarray(values, np.uint64).reshape(-1, 3),
+                        device)
 
 
 def _fold_device(coeffs, k, randomness):
@@ -508,98 +519,189 @@ def _fold_device(coeffs, k, randomness):
     return acc
 
 
-def _powers_dev(x, n):
-    """x^0 .. x^(n-1) of XFE points x (3, m) as XFE (3, m, n), n a power of
-    2, by doubling ([p, p * x^len(p)]); also returns x^n (3, m, 1)."""
-    p = gfx.lift(torch.ones_like(x[0]))[..., None]
-    xp = x[..., None]
-    while p.shape[-1] < n:
-        p = torch.cat([p, gfx.mul(p, xp)], dim=-1)
-        xp = gfx.mul(xp, xp)
-    return p, xp
+def _mul_matrices(a):
+    """M(a) (..., 3, 3) u64 for host XFE a (tuples, or u64 (..., 3)): the
+    base-field matrix with M(a) @ b = a * b, the product of fields/xfe.py
+    reduced by x^3 = x - 1."""
+    a = np.asarray(a, np.uint64)
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    zero = np.zeros_like(a0)
+    a02 = nf.bfe_add(a0, a2)
+    return np.stack([
+        np.stack([a0, nf.bfe_sub(zero, a2), nf.bfe_sub(zero, a1)], -1),
+        np.stack([a1, a02, nf.bfe_sub(a1, a2)], -1),
+        np.stack([a2, a1, a02], -1)], -2)
+
+
+def _xfe_apply(mats, v):
+    """sum_k a_k * v[:, ..., k] for host XFE constants a_k, given as their
+    matrices `mats` (..., K, 3, 3) (`_mul_matrices`), and an XFE tensor v
+    (3, ..., K), the leading axes broadcast: one base-field product and
+    one `gf.reduce_sum` over the 3K words of each sum, where `gfx.mul`
+    would take nine products and their sums. Returns XFE (3, ...)."""
+    m = np.moveaxis(mats, -2, 0)                         # (3, ..., K, 3)
+    m = np.swapaxes(m, -1, -2).reshape(m.shape[:-2] + (-1,))  # (3, ..., 3K)
+    w = v.movedim(0, -2).reshape(v.shape[1:-1] + (-1,))     # (..., 3K)
+    return gf.reduce_sum(gf.mul(gf.from_u64(m, v.device), w[None]), -1)
 
 
 def _eval_folded_at(coeffs, points):
     """Evaluate the polynomial with coefficients `coeffs` (XFE (3, n), low
     to high) at host XFE points; returns host XFE tuples.
 
-    One batched pass per block of points instead of a Horner chain of n
-    dependent steps: with B ~ sqrt(n) and the coefficients as an (n/B, B)
-    block, f(x) = sum_j x^(Bj) * sum_t c[Bj + t] x^t. The powers x^t
-    (t < B) and x^(Bj) come from doubling ladders, the inner sums are one
-    batched product and `gfx.reduce_sum`. Field arithmetic is exact, so
-    the values equal `poly.evaluate`'s."""
+    With B ~ sqrt(n) and the coefficients as an (n/B, B) block,
+    f(x) = sum_j x^(Bj) * sum_t c[Bj + t] x^t. The powers x^t (t < B) and
+    x^(Bj) are host tables, B + n/B XFE products a point; on the device
+    each of the two sums is one product by a table and one
+    `gf.reduce_sum` (`_xfe_apply`), the inner one over blocks of rows
+    (`gf.block_rows`). The values are read once. Field arithmetic is
+    exact, so they equal `poly.evaluate`'s."""
     if not points:
         return []
-    dev = coeffs.device
     n = 1 << (coeffs.shape[-1] - 1).bit_length()
     B = 1 << ((n.bit_length() - 1) // 2)
-    nb = n // B
-    blocks = _pad_to(coeffs, n).reshape(3, 1, nb, B)
-    per = max(1, _EVAL_BLOCK_ELEMS // n)
+    blocks = _pad_to(coeffs, n).reshape(3, n // B, B)
+    step = gf.block_rows(9 * B)
     out = []
-    for s in range(0, len(points), per):
-        x = gfx.from_u64(np.array(points[s:s + per], np.uint64), dev)
-        small, x_b = _powers_dev(x, B)                   # (3, m, B)
-        large, _ = _powers_dev(x_b[..., 0], nb)          # (3, m, nb)
-        inner = gfx.reduce_sum(gfx.mul(blocks, small[:, :, None, :]), -1)
-        out += gfx.to_tuples(gfx.reduce_sum(gfx.mul(inner, large), -1))
-    return out
+    for x in points:
+        small = _powers(x, B)
+        large = _mul_matrices(_powers(xfe.mul(small[-1], x), n // B))
+        small = _mul_matrices(small)[None]
+        inner = torch.cat([_xfe_apply(small, blocks[:, s:s + step])
+                           for s in range(0, n // B, step)], dim=-1)
+        out.append(_xfe_apply(large, inner))
+    return gfx.to_tuples(torch.stack(out, dim=-1))
 
 
 def _eval_on_folded_domain(folded, folded_domain: Domain, indices):
     """The values of the polynomial with coefficients `folded` (XFE (3, n),
-    low to high) at `folded_domain.value(i)` for each i in `indices`, as
-    host XFE tuples. n must be the folded domain's length: the values are
-    entries of one forward transform of `folded` onto that domain (K4 on a
-    card, spread over an active mesh when tall), gathered on the device
-    and read back in one read."""
+    low to high) at `folded_domain.value(i)` for each i in `indices`, an
+    XFE tensor (3, len(indices)) on its device. n must be the folded
+    domain's length: the values are entries of one forward transform of
+    `folded` onto that domain (K4 on a card, spread over an active mesh
+    when tall), gathered on the device."""
     if folded.shape[-1] != folded_domain.length:
         raise LdtError(f"{folded.shape[-1]} folded coefficients for a "
                        f"folded domain of {folded_domain.length} points")
     evals = ntt_sharded.xfe_ntt_auto(folded, folded_domain.offset)
     idx = torch.as_tensor(indices, dtype=torch.int64, device=folded.device)
-    return gfx.to_tuples(evals.index_select(1, idx))
+    return evals.index_select(1, idx)
+
+
+def _bfe_zerofier(roots):
+    """prod (x - r) over base-field ints `roots`: its coefficients, u64
+    (len(roots) + 1,), low to high. A product tree: the roots padded to a
+    power of 2 with zeros, each factor monic and kept as its low
+    coefficients, and at each level the products of all pairs at once,
+    (x^h + a)(x^h + b) = x^2h + x^h (a + b) + ab, with ab one outer
+    product and its anti-diagonal sums. The padding's factors x only
+    shift the product, by as many places as are cut off at the end."""
+    m = len(roots)
+    size = 1 << max(m - 1, 0).bit_length()
+    low = np.zeros((size, 1), np.uint64)
+    low[:m, 0] = nf.bfe_sub(np.uint64(0), np.asarray(roots, np.uint64))
+    while len(low) > 1:
+        a, b = low[0::2], low[1::2]
+        pairs, h = a.shape
+        ab = np.zeros((pairs, h, 2 * h), np.uint64)
+        diag = np.arange(h)[:, None] * (2 * h + 1) + np.arange(h)
+        ab.reshape(pairs, -1)[:, diag] = nf.bfe_mul(a[:, :, None],
+                                                    b[:, None, :])
+        low = nf.bfe_sum(ab, 1)
+        low[:, h:] = nf.bfe_add(low[:, h:], nf.bfe_add(a, b))
+    return np.append(low[0], np.uint64(1))[size - m:]
+
+
+def _zerofier(base, ood):
+    """The zerofier prod (x - p) of the lifted base-field points `base`
+    (ints) and the XFE points `ood`, as (zb, z), u64 coefficients low to
+    high: zb (len(base) + 1,) the base points' factor (`_bfe_zerofier`), z
+    (m + 1, 3) all of it, zb times one factor x - q a point of `ood`."""
+    zb = _bfe_zerofier(base)
+    z = nf.lift(zb)
+    zero = np.zeros((1, 3), np.uint64)
+    for q in ood:
+        qz = nf.xfe_mul(z, np.asarray(q, np.uint64))
+        z = nf.xfe_sub(np.concatenate([zero, z]), np.concatenate([qz, zero]))
+    return zb, z
+
+
+def _interpolate_dev(domain: Domain, indices, ood, values, zerofier):
+    """The interpolant of degree < m through m points, as XFE coefficients
+    (3, m), low to high, on the device of `values`: the points
+    domain.value(i) for i in `indices` and then the XFE points `ood`,
+    taking values[:, j] (XFE (3, m)) at the j-th of them; `zerofier` is
+    `_zerofier`'s (zb, z) for them. Field arithmetic is exact, so the
+    coefficients are `poly.interpolate`'s; a repeated point raises
+    ZeroDivisionError, as there.
+
+    The domain points b_i have the interpolant L = sum_i c_i zb / (x - b_i)
+    with c_i = y_i / zb'(b_i). One transform onto the domain (K4 on a card)
+    gives zb' there, gathered at the b_i and read once, so the host
+    inverts the weights; a second, of the weighted values placed at their
+    indices, gives the moments s_d = sum_i c_i b_i^d, d < len(indices); and
+    L_k = sum_d s_d zb_(k+1+d) is one product by a block of zb's
+    coefficients and one `gf.reduce_sum`. Each XFE point q then adds
+    (v_q - L(q)) G_q with G_q = z / ((x - q) z'(q)), which is 1 at q and 0
+    at every other point: O(m) host XFE products a point of `ood` (the
+    powers of q, the division of z by x - q), the products by them on the
+    device (`_xfe_apply`)."""
+    dev = values.device
+    zb, z = zerofier
+    m_b, m = len(indices), values.shape[-1]
+    out = gfx.zeros((m,), dev)
+    if m_b:
+        n, offset = domain.length, domain.offset
+        idx = torch.as_tensor(indices, dtype=torch.int64, device=dev)
+        d_zb = nf.bfe_mul(zb[1:], np.arange(1, m_b + 1, dtype=np.uint64))
+        weights = gf.to_u64(ntt.ntt(gf.from_u64(d_zb, dev), offset,
+                                    n).index_select(0, idx))
+        # 1 / (zb'(b_i) offset^e_i), b_i = offset omega^e_i: the second
+        # transform scales its word e by offset^e, so that its word d is
+        # sum_i c_i omega^(e_i d)
+        scale = bfe.batch_inverse([int(w) * pow(offset, i, P) % P
+                                   for w, i in zip(weights, indices)])
+        placed = gfx.zeros((n,), dev)
+        placed[:, idx] = gf.mul(values[:, :m_b], gf.from_u64(scale, dev))
+        s = gf.mul(ntt.ntt(placed, offset)[:, :m_b],
+                   gf.from_u64(nf.powers_u64(offset, 1, m_b), dev))
+        k = torch.arange(m_b, device=dev)
+        k = k[:, None] + k[None, :] + 1
+        shifts = torch.where(k <= m_b, gf.from_u64(zb, dev)[k.clamp(
+            max=m_b)], 0)                        # zb_(k+1+d), (m_b, m_b)
+        out[:, :m_b] = gf.reduce_sum(gf.mul(shifts, s[:, None, :]), -1)
+    if ood:
+        d = values[:, m_b:]
+        if m_b:
+            q_powers = _mul_matrices([_powers(q, m_b) for q in ood])
+            d = gf.sub(d, _xfe_apply(q_powers, out[:, :m_b]))
+        z_host = nf.to_tuples(z)
+        g_rows = []
+        for q in ood:
+            quot = [z_host[-1]]                  # z / (x - q), high first
+            for c in reversed(z_host[1:-1]):
+                quot.append(xfe.add(c, xfe.mul(q, quot[-1])))
+            quot.reverse()
+            g = xfe.inv(poly.evaluate(quot, q, xfe))       # 1 / z'(q)
+            g_rows.append([xfe.mul(g, c) for c in quot])
+        g_cols = np.swapaxes(_mul_matrices(g_rows), 0, 1)   # (m, |ood|, ..)
+        out = gf.add(out, _xfe_apply(g_cols, d))
+    return out
 
 
 def _eval_poly_on_domain_dev(polys, domain: Domain, device):
-    """Evaluate short host XFE polynomials on every point of `domain`: one
-    batched NTT of the zero-padded coefficients. Returns XFE (3, n) per
+    """Evaluate XFE polynomials shorter than `domain` on every point of it:
+    one batched transform of the coefficients, zero-padded (in the load of
+    K4 on a card). A polynomial is a host list of XFE tuples, a u64 (k, 3)
+    array, or an XFE tensor (3, k) on `device`. Returns XFE (3, n) per
     polynomial."""
-    n = domain.length
-    arr = np.zeros((len(polys), n, 3), np.uint64)
-    for i, coeffs in enumerate(polys):
-        assert len(coeffs) <= n, "polynomial longer than evaluation domain"
-        if coeffs:
-            arr[i, :len(coeffs)] = np.array(coeffs, np.uint64)
-    evals = ntt.ntt(gfx.from_u64(arr, device), domain.offset)  # (3, k, n)
-    return evals.unbind(1)
-
-
-def _zerofier_on_domain_dev(points, domain: Domain, device):
-    """The zerofier of host XFE `points`, prod_i (x - p_i), at every point
-    x of `domain`, XFE (3, n): the (m, n) block of linear factors, m padded
-    to a power of 2 with factors of 1, halved by pairwise products in
-    log2(m) levels, over column blocks of at most _ZEROFIER_BLOCK_ELEMS
-    factors."""
-    n = domain.length
-    m = 1 << (max(len(points), 1) - 1).bit_length()
-    pts = np.zeros((m, 3), np.uint64)
-    pts[:len(points)] = np.array(points, np.uint64).reshape(-1, 3)
-    p = gfx.from_u64(pts, device)[..., None]                  # (3, m, 1)
-    pad = (torch.arange(m, device=device) >= len(points))[:, None]
-    one = gfx.full((1, 1), xfe.ONE, device)
-    xs = gf.powers(domain.generator, n, domain.offset, device)
-    cols = max(1, _ZEROFIER_BLOCK_ELEMS // m)
-    out = []
-    for s in range(0, n, cols):
-        f = gfx.sub(gfx.lift(xs[None, s:s + cols]), p)          # (3, m, c)
-        f = torch.where(pad, one, f)
-        while f.shape[1] > 1:
-            half = f.shape[1] // 2
-            f = gfx.mul(f[:, :half], f[:, half:])
-        out.append(f[:, 0])
-    return torch.cat(out, dim=-1)
+    polys = [c if torch.is_tensor(c) else _xfe_tensor(c, device)
+             for c in polys]
+    longest = max(c.shape[-1] for c in polys)
+    assert longest <= domain.length, \
+        "polynomial longer than evaluation domain"
+    rows = torch.stack([_pad_to(c, longest) for c in polys], dim=1)
+    return ntt.ntt(rows, domain.offset, domain.length).unbind(1)
 
 
 def _quotient_next_vals(folded_evals, ans_evals, z_evals, dc_evals):
