@@ -21,11 +21,17 @@ the zerofier from a product tree in base-field arithmetic on the host,
 the interpolant from two transforms onto the folded domain and a few
 batched products on the device; one transform of the two with the degree
 correction evaluates them on the next domain. Leaf rows are hashed by the
-K2 row sponge and the trees built by K1 (ops/tip5_kernel.py). The
-verifier's per-query coset work (size k = the folding factor) and its
-interpolation through each round's points are scalar host math. The
-prover's work is timed in spans within the prover's `LDT` stage
-(`profiler.device_span`).
+K2 row sponge and the trees built by K1 (ops/tip5_kernel.py).
+
+The verifier hashes the revealed leaves in one batch on its device and
+checks their Merkle paths on the host. Each round's answers at the
+revealed coset points are a few batched operations: the previous round's
+interpolant and zerofier from the prover's own helpers, evaluated on the
+round's domain by one transform and gathered at every revealed point;
+the quotient, degree correction and k-point fold (an inverse DFT of each
+coset) in host numpy over all points at once; the last round's
+polynomial at every query from one power table. Prover and verifier are
+timed in spans within their `LDT` stage (`profiler.device_span`).
 """
 
 from __future__ import annotations
@@ -298,13 +304,17 @@ class Stir:
     # ----------------------------------------------------------- verify
 
     def verify(self, proof_stream, device="cpu"):
-        """stir.rs:995-1110 on the host; the revealed leaves are hashed in
-        one batch on `device`. Returns (first_round_indices,
-        partial_first_codeword) like Fri.verify."""
+        """stir.rs:995-1110. The revealed leaves are hashed in one batch on
+        `device` (`STIR verify inclusion proofs`); each round's answers at
+        its revealed coset points are a few batched operations
+        (`_in_domain_answers`, `STIR verify answers`). Returns
+        (first_round_indices, partial_first_codeword) like Fri.verify."""
+        dev = torch.device(device)
+        k = self.folding_factor
         domain = self.domain
         partial_first_codeword = None
         first_round_indices = None
-        prev_quotienting = None
+        quotienting = None
         prev_root = proof_stream.dequeue().expect("MerkleRoot")
 
         for in_domain, out_of_domain in self.round_queries:
@@ -313,35 +323,23 @@ class Stir:
             ood_queries = proof_stream.sample_scalars(out_of_domain)
             ood_answers = proof_stream.dequeue().expect(
                 "StirOutOfDomainValues")
-            queries, raw_indices = self._extract_inclusion_proof(
-                proof_stream, domain, in_domain, prev_root, device)
+            with profiler.device_span("STIR verify inclusion proofs", "LDT",
+                                      dev):
+                queries, raw_indices = self._extract_inclusion_proof(
+                    proof_stream, domain, in_domain, prev_root, device)
             if partial_first_codeword is None:
                 partial_first_codeword = self._partial_codeword(
                     domain, queries)
                 first_round_indices = raw_indices
 
-            if prev_quotienting is None:
-                answers = _initial_in_domain_answers(
-                    queries, folding_randomness)
-            else:
-                answers = _subsequent_in_domain_answers(
-                    prev_quotienting, queries, folding_randomness)
-
-            # de-duplicate by query point (stir.rs:1026-1033)
-            quotient_set, quotient_answers = [], []
-            seen = set()
-            all_points = ([xfe.lift(q["point"]) for q in queries]
-                          + list(ood_queries))
-            all_answers = list(answers) + list(ood_answers)
-            for pt, ans in zip(all_points, all_answers):
-                if pt in seen:
-                    continue
-                seen.add(pt)
-                quotient_set.append(pt)
-                quotient_answers.append(ans)
+            with profiler.device_span("STIR verify answers", "LDT", dev):
+                answers = _in_domain_answers(domain, k, queries,
+                                             folding_randomness, quotienting,
+                                             dev)
             dc_randomness = proof_stream.sample_scalars(1)[0]
-            prev_quotienting = (quotient_set, quotient_answers,
-                                dc_randomness)
+            quotienting = _Quotienting.of(domain.pow(k), queries, answers,
+                                          ood_queries, ood_answers,
+                                          dc_randomness)
             domain = self.next_round_domain(domain)
             prev_root = cur_root
 
@@ -350,20 +348,15 @@ class Stir:
         if poly.degree(final_poly, xfe) > self.final_degree:
             raise LdtError("last round polynomial has too high degree")
 
-        queries, raw_indices = self._extract_inclusion_proof(
-            proof_stream, domain, self.final_num_in_domain_queries,
-            prev_root, device)
-        if prev_quotienting is None:
-            final_answers = _initial_in_domain_answers(
-                queries, folding_randomness)
-        else:
-            final_answers = _subsequent_in_domain_answers(
-                prev_quotienting, queries, folding_randomness)
-        for q, answer in zip(queries, final_answers):
-            evaluation = poly.evaluate(final_poly, xfe.lift(q["point"]),
-                                       xfe)
-            if answer != evaluation:
-                raise LdtError("last round polynomial evaluation mismatch")
+        with profiler.device_span("STIR verify inclusion proofs", "LDT", dev):
+            queries, raw_indices = self._extract_inclusion_proof(
+                proof_stream, domain, self.final_num_in_domain_queries,
+                prev_root, device)
+        with profiler.device_span("STIR verify answers", "LDT", dev):
+            final_answers = _in_domain_answers(domain, k, queries,
+                                               folding_randomness,
+                                               quotienting, dev)
+            _check_last_round(final_poly, queries, final_answers)
 
         if partial_first_codeword is None:
             partial_first_codeword = self._partial_codeword(domain, queries)
@@ -439,54 +432,164 @@ def _powers(x, n):
     return out
 
 
-def _coset_interpolate(root_bfe, values):
-    """Polynomial through (root*omega_k^j, values[j]); k is tiny (the
-    folding factor), so Lagrange interpolation is fine."""
-    kk = len(values)
-    omega = Domain(kk).generator
-    pts = [xfe.lift(root_bfe * pow(omega, j, P) % P) for j in range(kk)]
-    return poly.interpolate(pts, list(values), xfe)
+@dataclass(frozen=True)
+class _Quotienting:
+    """A full round's quotient set as the next round's answers need it:
+    the kept points of the round's folded domain `domain` by index
+    (`indices`), then the kept out-of-domain samples `ood` (XFE tuples),
+    their answers in that order (u64 (m, 3)) and the round's
+    degree-correction randomness."""
+
+    domain: Domain
+    indices: list
+    ood: list
+    answers: np.ndarray
+    dc_randomness: tuple
+
+    @staticmethod
+    def of(folded_domain: Domain, queries, answers, ood_queries,
+           ood_answers, dc_randomness):
+        """The queried points and then the OOD samples, de-duplicated by
+        point (stir.rs:1026-1033): a repeated folded index, or an OOD
+        sample equal to a kept point, is dropped with its answer."""
+        seen, indices, rows, ood = set(), [], [], []
+        for q, ans in zip(queries, answers):
+            pt = xfe.lift(q["point"])
+            if pt not in seen:
+                seen.add(pt)
+                indices.append(q["index"] % folded_domain.length)
+                rows.append(ans)
+        for pt, ans in zip(ood_queries, ood_answers):
+            pt = tuple(pt)
+            if pt not in seen:
+                seen.add(pt)
+                ood.append(pt)
+                rows.append(ans)
+        return _Quotienting(folded_domain, indices, ood,
+                            np.asarray(rows, np.uint64).reshape(-1, 3),
+                            tuple(dc_randomness))
 
 
-def _initial_in_domain_answers(queries, folding_randomness):
-    """stir.rs:1259-1272."""
-    out = []
-    for q in queries:
-        p = _coset_interpolate(q["root"], q["values"])
-        out.append(poly.evaluate(p, folding_randomness, xfe))
-    return out
+def _in_domain_answers(round_domain: Domain, k, queries, folding_randomness,
+                       quotienting, device):
+    """stir.rs:1259-1323: the folded answer of each query, u64 (Q, 3).
+
+    A query reveals the values e_j at its coset's points
+    x_j = root * omega_k^j, which are `round_domain.value(i + j n/k)` for
+    its folded index i. After a full round (`quotienting`), each e_j is
+    first replaced by the quotient (e_j - A(x_j)) / Z(x_j), degree-
+    corrected (`_quotient_coset_values`). Then the interpolant through the
+    coset is evaluated at the folding randomness: one inverse DFT over the
+    k values of every query at once (`_fold_cosets`). Field arithmetic is
+    exact, so the answers equal the scalar ones of stir.rs word for word.
+    Counts the revealed points answered (`STIR answered points`)."""
+    values = np.asarray([q["values"] for q in queries],
+                        np.uint64).reshape(len(queries), k, 3)
+    roots = np.asarray([q["root"] for q in queries], np.uint64)
+    if quotienting is not None:
+        folded_len = round_domain.length // k
+        indices = np.asarray([q["index"] % folded_len for q in queries])
+        points = nf.bfe_mul(roots[:, None], nf.powers_u64(
+            pow(round_domain.generator, folded_len, P), 1, k)[None])
+        values = _quotient_coset_values(
+            quotienting, values, round_domain,
+            indices[:, None] + folded_len * np.arange(k), points, device)
+    profiler.count("STIR answered points", values.shape[0] * k)
+    return _fold_cosets(values, roots, folding_randomness)
 
 
-def _subsequent_in_domain_answers(quotienting, queries,
-                                  folding_randomness):
-    """stir.rs:1275-1323: quotient + degree-correct the revealed coset
-    values, then fold."""
-    quotient_set, quotient_answers, dc_randomness = quotienting
-    answer_poly = poly.interpolate(quotient_set, quotient_answers, xfe)
-    zerofier = poly.zerofier(quotient_set, xfe)
-    degree_difference = len(quotient_set) + 1
+def _quotient_coset_values(quotienting: _Quotienting, values, round_domain,
+                           indices, points, device):
+    """(v - A(x)) / Z(x) * (1 - c^d) / (1 - c), u64 (Q, k, 3), for the
+    revealed values v (Q, k, 3) at the base-field points x (`points`, the
+    words `indices` of `round_domain`), with A and Z the previous round's
+    interpolant and zerofier, c = dc_randomness * x and d = m + 1 for m
+    points in the quotient set; the factor is d where c = 1.
 
-    out = []
-    for q in queries:
-        coset_evaluations = []
-        current_root = q["root"]
-        for evaluation in q["values"]:
-            ans = poly.evaluate(answer_poly, xfe.lift(current_root), xfe)
-            z = poly.evaluate(zerofier, xfe.lift(current_root), xfe)
-            quotient = xfe.mul(xfe.sub(tuple(evaluation), ans), xfe.inv(z))
+    A and Z are coefficients (`_zerofier`, `_interpolate_dev`, on
+    `device`, as the prover builds them), evaluated on the whole round
+    domain by one transform (`_eval_poly_on_domain_dev`, the prover's
+    `STIR quotient` transform), gathered at the revealed points and read
+    once. The rest is numpy over all points at once: c^d =
+    dc_randomness^d x^d, and one batched inversion of Z(x) and 1 - c
+    (`npfield.xfe_inv`), which raises ZeroDivisionError where Z(x) = 0, as
+    `xfe.inv` does."""
+    q = quotienting
+    shape = values.shape
+    base = [q.domain.value(i) for i in q.indices]
+    zerofier = _zerofier(base, q.ood)
+    answer_poly = _interpolate_dev(q.domain, q.indices, q.ood,
+                                   _xfe_tensor(q.answers, device), zerofier)
+    evals = _eval_poly_on_domain_dev([answer_poly, zerofier[1]],
+                                     round_domain, device)
+    idx = torch.as_tensor(indices.reshape(-1), dtype=torch.int64,
+                          device=device)
+    ans, z = gfx.to_u64(torch.stack([e.index_select(1, idx) for e in evals],
+                                    dim=1)).reshape((2,) + shape)
 
-            common = xfe.bfe_mul(dc_randomness, current_root)
-            if common == xfe.ONE:
-                dc_factor = xfe.lift(degree_difference % P)
-            else:
-                num = xfe.sub(xfe.ONE, xfe.mod_pow(common,
-                                                   degree_difference))
-                dc_factor = xfe.mul(num, xfe.inv(xfe.sub(xfe.ONE, common)))
-            coset_evaluations.append(xfe.mul(dc_factor, quotient))
-            current_root = current_root * q["kth_root"] % P
-        p = _coset_interpolate(q["root"], coset_evaluations)
-        out.append(poly.evaluate(p, folding_randomness, xfe))
-    return out
+    x = points
+    d = len(q.answers) + 1
+    dc = np.asarray(q.dc_randomness, np.uint64)
+    one_minus_c = nf.xfe_sub(nf.lift(np.ones_like(x)), nf.xfe_bfe_mul(dc, x))
+    c_is_one = ~one_minus_c.any(axis=-1)
+    one_minus_c[c_is_one] = nf.lift(np.uint64(1))
+    c_pow_d = nf.xfe_bfe_mul(np.asarray(xfe.mod_pow(q.dc_randomness, d),
+                                        np.uint64), nf.bfe_pow(x, d))
+    z_inv, den_inv = nf.xfe_inv(np.stack([z, one_minus_c]))
+    factor = nf.xfe_mul(nf.xfe_sub(nf.lift(np.ones_like(x)), c_pow_d),
+                        den_inv)
+    factor[c_is_one] = nf.lift(np.uint64(d % P))
+    return nf.xfe_mul(factor, nf.xfe_mul(nf.xfe_sub(values, ans), z_inv))
+
+
+def _fold_cosets(values, roots, folding_randomness):
+    """The interpolant through (root * omega_k^j, e_j), j < k, evaluated
+    at the folding randomness r, for every query: `values` u64 (Q, k, 3)
+    the e_j, `roots` u64 (Q,). Its coefficients are c_i = k^-1 root^-i
+    sum_j e_j omega_k^(-ij), an inverse DFT of the coset's values, so the
+    answer is sum_i c_i r^i: no division by a difference of points, and
+    the roots' inverses come from one batch inversion. Returns u64
+    (Q, 3)."""
+    k = values.shape[1]
+    omega_inv = bfe.inv(Domain(k).generator)
+    k_inv = bfe.inv(k)
+    idft = np.array([[k_inv * pow(omega_inv, i * j, P) % P
+                      for j in range(k)] for i in range(k)], np.uint64)
+    coeffs = nf.bfe_sum(nf.bfe_mul(idft[None, :, :, None],
+                                   values[:, None]), 2)       # (Q, k, 3)
+    root_inv = np.asarray(bfe.batch_inverse([int(r) for r in roots]),
+                          np.uint64)
+    scale = np.ones(roots.shape + (k,), np.uint64)
+    for i in range(1, k):
+        scale[:, i] = nf.bfe_mul(scale[:, i - 1], root_inv)
+    r_powers = np.asarray(_powers(tuple(folding_randomness), k), np.uint64)
+    return nf.xfe_sum(nf.xfe_mul(nf.xfe_bfe_mul(coeffs, scale),
+                                 r_powers[None]), 1)
+
+
+def _check_last_round(final_poly, queries, answers):
+    """stir.rs:1098-1104: the last round's polynomial at every query's
+    folded point equals its answer (u64 (Q, 3)); raises LdtError on any
+    mismatch."""
+    evaluations = _evaluate_at_bfes(final_poly, [q["point"] for q in queries])
+    if not np.array_equal(answers, evaluations):
+        raise LdtError("last round polynomial evaluation mismatch")
+
+
+def _evaluate_at_bfes(coeffs, points):
+    """The XFE polynomial `coeffs` (host tuples, low to high) at the
+    base-field points `points`, u64 (len(points), 3): a power table of the
+    points built by doubling (log2 of the length numpy products), one
+    product by the coefficients and one sum."""
+    coeffs = np.asarray(coeffs or [xfe.ZERO], np.uint64).reshape(-1, 3)
+    x = np.asarray(points, np.uint64)
+    table = np.ones((len(x), len(coeffs)), np.uint64)
+    step, x_step = 1, x
+    while step < len(coeffs):
+        n = min(step, len(coeffs) - step)
+        table[:, step:step + n] = nf.bfe_mul(table[:, :n], x_step[:, None])
+        step, x_step = 2 * step, nf.bfe_mul(x_step, x_step)
+    return nf.xfe_sum(nf.xfe_bfe_mul(coeffs[None], table), 1)
 
 
 # ------------------------------------------------------ device prove pieces

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..fields import bfe
+
 P = 0xFFFFFFFF00000001
 _P = np.uint64(P)
 _MASK = np.uint64(0xFFFFFFFF)
@@ -110,6 +112,36 @@ def xfe_mul(a, b):
     return np.stack([bfe_sub(c0, c3),
                      bfe_sub(bfe_add(c1, c3), c4),
                      bfe_add(c2, c4)], axis=-1)
+
+
+def xfe_inv(a):
+    """1 / a elementwise on (..., 3) arrays, by the norm map: a^-1 =
+    adj(M) e_0 / N(a) for the matrix M of the product by a (x^3 = x - 1),
+    N(a) = det M in the base field, so all norms take one
+    `bfe.batch_inverse`. Raises ZeroDivisionError if any a is zero, as
+    fields/xfe.py's `inv` does."""
+    a = np.asarray(a, np.uint64)
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    s = bfe_add(a0, a2)
+    adj0 = bfe_sub(bfe_mul(s, s), bfe_mul(bfe_sub(a1, a2), a1))
+    adj1 = bfe_sub(bfe_mul(bfe_sub(a1, a2), a2), bfe_mul(a1, s))
+    adj2 = bfe_sub(bfe_mul(a1, a1), bfe_mul(s, a2))
+    norm = bfe_sub(bfe_mul(a0, adj0),
+                   bfe_add(bfe_mul(a2, adj1), bfe_mul(a1, adj2)))
+    norm_inv = np.asarray(bfe.batch_inverse(
+        [int(n) for n in norm.reshape(-1)]), np.uint64).reshape(norm.shape)
+    return xfe_bfe_mul(np.stack([adj0, adj1, adj2], -1), norm_inv)
+
+
+def bfe_pow(a, e: int):
+    """a^e elementwise for a u64 array of base-field words and e >= 0."""
+    a = np.asarray(a, np.uint64)
+    out = np.ones_like(a)
+    for bit in bin(e)[2:]:
+        out = bfe_mul(out, out)
+        if bit == "1":
+            out = bfe_mul(out, a)
+    return out
 
 
 def xfe_bfe_mul(a, s):
