@@ -35,13 +35,13 @@ session of its own:
    (every launch's shape timed);
 3b. [kernels] K3 (the AIR quotient: the row tape compiled into segment
    kernels by ops/tape_codegen.py around csrc/quotient.cu) against its plain
-   version at the full widths on 2^16 random rows, a ragged 2^16 + 3,
-   edge values, aux as a permuted view and a mesh shard's rows with their
-   halo; against the level tape (the CPU path's `_quotient_chunk_fn`) at
-   2^16 rows, both timed at 2^13 and 2^16; K3 timed at every prove's
-   launch shape (2^13 to 2^22 rows) and summed per prove, and held
-   against the level tape over every row of a 2^20 prove's 2^21-row JIT
-   coset (its next-row shift, aux a permuted view);
+   version (`quotients_on_rows_plain`, the CPU prover's quotient path) at
+   the full widths on 2^16 random rows, a ragged 2^16 + 3, edge values,
+   aux as a permuted view and a mesh shard's rows with their halo, both
+   timed at 2^16; K3 timed at every prove's launch shape (2^13 to 2^22
+   rows) and summed per prove, and held against its plain version over
+   every row of a 2^20 prove's 2^21-row JIT coset (its next-row shift,
+   aux a permuted view);
 3c. [kernels] K4 (the Goldilocks NTT, csrc/ntt.cu) against its plain
    version (the scales as gf.mul and the radix-2 network
    `ntt._transform_plain`) at every launch class: Bezout-style short
@@ -110,10 +110,9 @@ session of its own:
 14. [witness] the device-resident witness (`main_witness_dev`,
    `aux_witness_dev`) on the card for `u32_mix`, `spin(12)`, config 5's
    `fs_replay` and `queries` sections and hash_chain_65536's trace
-   (padded height 2^16 each; their host oracles run in three worker
-   processes from the end of the recursive_verifier and hash_chain_65536
-   paths on, beside the paths that follow), word for word against the
-   host oracle of tables/master.py, with the device and host times;
+   (padded height 2^16 each), word for word against the same functions on
+   CPU tensors (which tier-1 holds to the JAX package's host witness),
+   with the card's and the CPU's times;
 15. [bench] the port's benchmark entry point as a user runs it,
    `python -m triton_vm_tpu_torch.bench`, in a process of its own for
    fib_1024 and for spin_65536 with TVM_BENCH_SOL=1 and TVM_PROFILE=1 (the
@@ -177,7 +176,6 @@ import collections
 import concurrent.futures
 import contextlib
 import json
-import multiprocessing
 import os
 import re
 import subprocess
@@ -743,15 +741,14 @@ def jit_coset_shift(log2_height):
 
 def phase_k3(rng, bound):
     """K3 (csrc/quotient.cu) on the card at the full widths (379 main, 91
-    aux columns): held word for word against the plain version on 2^16
+    aux columns): held word for word against its plain version on 2^16
     random rows, a ragged 2^16 + 3, edge values (every column cycling
     through 0, 1, p - 1, 2^32), aux as a permuted view and a mesh shard's
-    block with its halo (M = N + 8); then against the level tape
-    (`_quotient_chunk_fn`, the CPU path) at 2^16 rows, both timed at 2^13
-    and 2^16 (launches against arithmetic); K3 timed with CUDA events at
-    every prove's launch shape and summed per prove, and at the 2^21-row
-    JIT coset of a 2^20 prove (its shift, aux permuted) held against the
-    level tape over all its rows, 2^16 at a time."""
+    block with its halo (M = N + 8), both timed at 2^16; K3 timed with
+    CUDA events at every prove's launch shape and summed per prove, and
+    at the 2^21-row JIT coset of a 2^20 prove (its shift, aux permuted)
+    held against its plain version over all its rows in one chunk (K3
+    runs them in its chunks of CHUNK_ROWS)."""
     import torch
 
     from triton_vm_tpu_torch.air import compile as aircomp
@@ -776,20 +773,7 @@ def phase_k3(rng, bound):
         del inp
     log("K3 equals its plain version word for word: " + ", ".join(checks))
     plain_ms = time_ms(lambda: qi.plain(timed), 1)
-    level = {}
-    for k in (13, 16):
-        inp = timed if k == 16 else qi.make_inputs(rng, 1 << k, "cuda")
-        if k == 16:
-            err = max_abs_err(qi.k3(inp), qi.level_tape(inp))
-            if err:
-                raise AssertionError(f"K3 disagrees with the level tape at "
-                                     f"2^16: {err}")
-        level[f"2^{k}"] = (time_ms(lambda: qi.k3(inp), 10),
-                           time_ms(lambda: qi.level_tape(inp), 1))
-        log(f"K3 against the level tape at 2^{k} rows: K3 "
-            f"{level[f'2^{k}'][0]:.3f} ms, level tape "
-            f"{level[f'2^{k}'][1]:.1f} ms")
-    del inp, timed
+    del timed
     # every prove's launch shapes (recursive_verifier_full's coset of 2^22
     # rows too), aux a permuted view as the provers pass it, each with its
     # bound; the JIT coset of a 2^20 prove with its own shift
@@ -809,17 +793,13 @@ def phase_k3(rng, bound):
         log(f"K3 2^{rows.bit_length() - 1} rows: {ms:.3f} ms, bound "
             f"{b[0]:.4f} ms ({b[1]})")
         if rows == jit_rows:
-            got = qi.k3(inp)
-            for s in range(0, rows, n):
-                err = max_abs_err(got[:, s:s + n],
-                                  qi.level_tape(inp, s, s + n))
-                if err:
-                    raise AssertionError(
-                        f"K3 disagrees with the level tape at the 2^21 JIT "
-                        f"coset, rows {s}..{s + n - 1}: {err}")
-            log(f"K3 equals the level tape word for word at the 2^21 JIT "
-                f"coset (shift {shift}, aux permuted), all rows")
-            del got
+            err = max_abs_err(qi.k3(inp), qi.plain(inp, chunk=rows))
+            if err:
+                raise AssertionError(
+                    f"K3 disagrees with its plain version at the 2^21 JIT "
+                    f"coset: {err}")
+            log(f"K3 equals its plain version word for word at the 2^21 "
+                f"JIT coset (shift {shift}, aux permuted), all rows")
         del inp
         torch.cuda.empty_cache()
     per_prove = {}
@@ -840,8 +820,6 @@ def phase_k3(rng, bound):
                             for r, v in by_rows.items()},
                 bound_ms_by_rows={f"2^{r.bit_length() - 1}": v[1]
                                   for r, v in by_rows.items()},
-                level_tape_ms={k: v[1] for k, v in level.items()},
-                k3_ms_beside_level={k: v[0] for k, v in level.items()},
                 per_prove_ms={k: t for k, (t, _) in per_prove.items()},
                 per_prove_bound_ms={k: b for k, (_, b) in per_prove.items()})
 
@@ -1049,18 +1027,15 @@ def reset_launch_counts():
 
 @contextlib.contextmanager
 def through_kernels():
-    """While a path proves: the quotient stage's level-tape chunk function
-    (`prover._quotient_chunk_fn`), K3's plain versions and the NTT's plain
+    """While a path proves: K3's plain versions and the NTT's plain
     network (`ntt._transform_plain`) raise if they are handed a tensor on
     the card, so every prove's quotient stage must go through K3 and every
     transform through K4; K4's calls are recorded by shape (yielded, a
-    Counter). `run_tape_scan` itself is not guarded: the derived columns'
-    fill (tables/extend_device.py) still runs it on the card."""
+    Counter). `run_tape_scan` is not guarded: the derived columns' fill
+    (tables/extend_device.py) runs it on the card."""
     from triton_vm_tpu_torch.ops import ntt, ntt_cuda, quotient_cuda
-    from triton_vm_tpu_torch.stark import prover
 
-    saved = {(prover, "_quotient_chunk_fn"): prover._quotient_chunk_fn,
-             (quotient_cuda, "quotients_on_rows_plain"):
+    saved = {(quotient_cuda, "quotients_on_rows_plain"):
                  quotient_cuda.quotients_on_rows_plain,
              (quotient_cuda, "run_row_tape_plain"):
                  quotient_cuda.run_row_tape_plain,
@@ -1678,53 +1653,6 @@ def phase_kernels_full(rng, bound):
                      "recursive_verifier_full": k2_total[1]}))
 
 
-def _host_witness(main_air, challenges, randomizer):
-    """The host oracle of tables/master.py (derived main columns,
-    extend_host, derived aux columns, the randomizer column): numpy
-    (h, 379) main and (h, 91, 3) aux tables."""
-    from triton_vm_tpu_torch.tables import master as mt
-
-    main = main_air.copy()
-    mt.fill_derived_main_columns(main)
-    aux = mt.extend_host(main, challenges)
-    mt.fill_derived_aux_columns(main, aux, challenges.challenges)
-    aux[:, mt.NUM_AUX - 1, :] = randomizer
-    return main, aux
-
-
-def _column_digests(main, aux):
-    """sha256 of every main column and every aux column (h rows each)."""
-    import hashlib
-
-    import numpy as np
-
-    return ([hashlib.sha256(np.ascontiguousarray(main[:, c])).hexdigest()
-             for c in range(main.shape[1])],
-            [hashlib.sha256(np.ascontiguousarray(aux[:, c])).hexdigest()
-             for c in range(aux.shape[1])])
-
-
-def _host_witness_of_trace(program, public_input, non_determinism,
-                           challenges, randomizer):
-    """In a worker process: trace `program`, fill its main table (the
-    Bezout step on the CPU) and run the host oracle; returns the column
-    digests, the padded height and the seconds."""
-    import torch
-
-    torch.set_num_threads(1)
-    from triton_vm_tpu_torch.tables import master as mt
-    from triton_vm_tpu_torch.vm.machine import VM, PublicInput
-
-    t0 = time.perf_counter()
-    aet, _ = VM.trace_execution(program, PublicInput(public_input),
-                                non_determinism)
-    h = aet.padded_height()
-    main_air = mt.fill_main_table(aet, padded_height=h, device="cpu")
-    digests = _column_digests(*_host_witness(main_air, challenges,
-                                             randomizer))
-    return digests, h, time.perf_counter() - t0
-
-
 def _challenges(rng, program, public_input, output):
     """Random sampled challenges for a trace's claim."""
     import triton_vm_tpu_torch as tvm
@@ -1737,57 +1665,16 @@ def _challenges(rng, program, public_input, output):
                       claim)
 
 
-def submit_witness(pool, rng, program, public_input, non_determinism=None):
-    """Trace `program`, draw its challenges and randomizer column, and
-    submit its host oracle to a worker process of `pool`, which runs while
-    the card proves the paths that follow. Returns (aet, challenges,
-    randomizer, future)."""
-    import triton_vm_tpu_torch as tvm
-
-    aet, output = tvm.VM.trace_execution(
-        program, tvm.PublicInput(public_input), non_determinism)
-    challenges = _challenges(rng, program, public_input, output)
-    randomizer = random_field(rng, (aet.padded_height(), 3))
-    return aet, challenges, randomizer, pool.submit(
-        _host_witness_of_trace, program, public_input, non_determinism,
-        challenges, randomizer)
-
-
-def submit_config5_witness(pool, built):
-    """Config 5's fs_replay and queries sections (sponge_absorb_mem,
-    sponge_squeeze, merkle_step, the extension-field instructions and RAM
-    pointers from 2^40 to 2^50; padded height 2^16 each) for the witness
-    phase, their host oracles submitted to `pool`. Returns {label: (aet,
-    challenges, randomizer, future)}."""
-    import numpy as np
-
-    rng = np.random.default_rng(18)
-    return {f"config 5 {section}": submit_witness(
-        pool, rng, built.programs[section], [], _divined(built))
-        for section in ("fs_replay", "queries")}
-
-
-def submit_hash_chain_witness(pool):
-    """hash_chain_65536's trace (hash_chain input 4000: 24,036 hash and
-    64,260 cascade rows, padded height 2^16) for the witness phase, its
-    host oracle submitted to `pool`."""
-    import numpy as np
-
-    from triton_vm_tpu_torch.models import example_programs as ex
-
-    chain, _ = HASH_CHAIN_CELLS["hash_chain_65536"]
-    return {"hash_chain_65536": submit_witness(
-        pool, np.random.default_rng(19), ex.hash_chain(), [chain])}
-
-
-def phase_witness(pending):
-    """The device-resident witness on the card against the host oracle
-    (tables/master.py: fill_derived_main_columns, extend_host,
-    fill_derived_aux_columns and the randomizer write), word for word, on
-    u32_mix (first, so the AIR and the tapes are built before spin(12) is
-    timed) and on spin(12); then on config 5's sections and
-    hash_chain_65536's trace, whose host oracles `submit_config5_witness`
-    and `submit_hash_chain_witness` handed to worker processes."""
+def phase_witness(built):
+    """The device-resident witness (`main_witness_dev`, `aux_witness_dev`)
+    on the card against the same functions on CPU tensors, which tier-1
+    holds to the JAX package's host witness (tests/test_torch_witness.py),
+    word for word: on u32_mix (first, so the AIR and the tapes are built
+    before spin(12) is timed), on spin(12), on config 5's fs_replay and
+    queries sections of `built` (sponge_absorb_mem, sponge_squeeze,
+    merkle_step, the extension-field instructions and RAM pointers from
+    2^40 to 2^50) and on hash_chain_65536's trace (hash_chain input 4000:
+    24,036 hash and 64,260 cascade rows), padded height 2^16 each."""
     import numpy as np
     import torch
 
@@ -1798,60 +1685,44 @@ def phase_witness(pending):
     from triton_vm_tpu_torch.tables import master as mt
 
     rng = np.random.default_rng(17)
-
-    def device_witness(main_air, challenges, randomizer):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        main_dev = ed.main_witness_dev(main_air, "cuda")
-        aux_dev = ed.aux_witness_dev(main_dev, challenges, randomizer)
-        torch.cuda.synchronize()
-        dev_s = time.perf_counter() - t0
-        return (_column_digests(gf.to_u64(main_dev).T,
-                                gf.to_u64(aux_dev).transpose(2, 0, 1)),
-                dev_s)
-
-    def compare(label, got, want):
-        bad = ([f"main {c}" for c in range(mt.NUM_MAIN)
-                if got[0][c] != want[0][c]]
-               + [f"aux {c}" for c in range(mt.NUM_AUX)
-                  if got[1][c] != want[1][c]])
-        if bad:
-            raise AssertionError(f"witness {label}: the device witness "
-                                 f"differs from the host oracle in {bad}")
-
     spin_program, spin_iterations = ex.spin(12)
-    for label, program, public_input in (
-            ("u32_mix", ex.u32_mix(), [50]),
-            ("spin_4096", spin_program, [spin_iterations])):
-        aet, output = tvm.VM.trace_execution(program,
-                                             tvm.PublicInput(public_input))
+    chain, _ = HASH_CHAIN_CELLS["hash_chain_65536"]
+    cases = [("u32_mix", ex.u32_mix(), [50], None),
+             ("spin_4096", spin_program, [spin_iterations], None)]
+    cases += [(f"config 5 {section}", built.programs[section], [],
+               _divined(built)) for section in ("fs_replay", "queries")]
+    cases.append(("hash_chain_65536", ex.hash_chain(), [chain], None))
+
+    def witness(main_air, challenges, randomizer, device):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        main = ed.main_witness_dev(main_air, device)
+        aux = ed.aux_witness_dev(main, challenges, randomizer)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return gf.to_u64(main), gf.to_u64(aux), time.perf_counter() - t0
+
+    for label, program, public_input, non_determinism in cases:
+        aet, output = tvm.VM.trace_execution(
+            program, tvm.PublicInput(public_input), non_determinism)
         challenges = _challenges(rng, program, public_input, output)
         h = aet.padded_height()
         main_air = mt.fill_main_table(aet, padded_height=h, device="cuda")
         randomizer = random_field(rng, (h, 3))
-        got, dev_s = device_witness(main_air, challenges, randomizer)
-        t0 = time.perf_counter()
-        main, aux = _host_witness(main_air, challenges, randomizer)
-        host_s = time.perf_counter() - t0
-        compare(label, got, _column_digests(main, aux))
+        got_main, got_aux, dev_s = witness(main_air, challenges, randomizer,
+                                           "cuda")
+        main, aux, cpu_s = witness(main_air, challenges, randomizer, "cpu")
+        bad = ([f"main {c}" for c in range(ed.NUM_MAIN)
+                if not np.array_equal(got_main[c], main[c])]
+               + [f"aux {c}" for c in range(ed.NUM_AUX)
+                  if not np.array_equal(got_aux[c], aux[c])])
+        if bad:
+            raise AssertionError(f"witness {label}: the card's witness "
+                                 f"differs from the CPU's in {bad}")
         log(f"witness {label} (padded height {h}): 379 main and 91 aux "
-            f"columns equal the host oracle; device {dev_s:.4f} s, host "
-            f"{host_s:.4f} s")
-
-    for label, (aet, challenges, randomizer, host) in pending.items():
-        h = aet.padded_height()
-        main_air = mt.fill_main_table(aet, padded_height=h, device="cuda")
-        got, dev_s = device_witness(main_air, challenges, randomizer)
-        t0 = time.perf_counter()
-        want, host_h, host_s = host.result()
-        if host_h != h:
-            raise AssertionError(f"witness {label}: padded height {h} here, "
-                                 f"{host_h} in the worker")
-        compare(label, got, want)
-        log(f"witness {label} (padded height {h}): 379 main and 91 aux "
-            f"columns equal the host oracle; device {dev_s:.4f} s, host "
-            f"(trace, fill and oracle in a worker process) {host_s:.1f} s, "
-            f"waited for here {time.perf_counter() - t0:.1f} s")
+            f"columns equal the CPU's; card {dev_s:.4f} s, CPU "
+            f"{cpu_s:.4f} s")
 
 
 def phase_bench(kernels):
@@ -1969,35 +1840,17 @@ def main(argv=None):
             k["mesh_shard_ms"] = {s: t for s, (t, _) in shapes.items()}
             k["mesh_shard_bound_ms"] = {s: b for s, (_, b) in shapes.items()}
     launches, proofs = {}, {}
-    # the host oracles of the witness phase's config 5 sections and of
-    # hash_chain_65536's trace run in three worker processes, from the end
-    # of the recursive_verifier and hash_chain_65536 paths
-    with (concurrent.futures.ProcessPoolExecutor(
-            3, mp_context=multiprocessing.get_context("spawn"))
-          if "witness" in phases else contextlib.nullcontext()) as pool:
-        pending = {}
-        for path in PATHS:
-            if path in phases:
-                for kernel, n in drive_path(path, proofs).items():
-                    launches[kernel] = launches.get(kernel, 0) + n
-                if pool is None:
-                    continue
-                if path == "recursive_verifier":
-                    pending.update(submit_config5_witness(
-                        pool, proofs["recursive_verifier_build"]))
-                elif path == "hash_chain_65536":
-                    pending.update(submit_hash_chain_witness(pool))
-        if launches:
-            log(f"kernel launches on the main path, all paths: "
-                f"{json.dumps(launches)}")
-            k4_per_prove(K4_CALLS, bound or Bound(), next(
-                (k for k in kernels if k["name"] == "ntt_pass"), None))
-        if "witness" in phases:
-            if "config 5 queries" not in pending:
-                pending.update(submit_config5_witness(pool, config5(1)))
-            if "hash_chain_65536" not in pending:
-                pending.update(submit_hash_chain_witness(pool))
-            phase_witness(pending)
+    for path in PATHS:
+        if path in phases:
+            for kernel, n in drive_path(path, proofs).items():
+                launches[kernel] = launches.get(kernel, 0) + n
+    if launches:
+        log(f"kernel launches on the main path, all paths: "
+            f"{json.dumps(launches)}")
+        k4_per_prove(K4_CALLS, bound or Bound(), next(
+            (k for k in kernels if k["name"] == "ntt_pass"), None))
+    if "witness" in phases:
+        phase_witness(proofs.get("recursive_verifier_build") or config5(1))
     if "bench" in phases:
         counts = phase_bench(kernels)
         log(f"kernel launches of the bench's proves and verifies: "

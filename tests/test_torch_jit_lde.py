@@ -17,7 +17,8 @@ from triton_vm_tpu.ops import ntt as jntt
 from triton_vm_tpu_torch import config
 from triton_vm_tpu_torch.crypto import tip5
 from triton_vm_tpu_torch.models import example_programs as ex
-from triton_vm_tpu_torch.ops import gf, gfx, kernels, ntt, tip5_cuda
+from triton_vm_tpu_torch.ops import (gf, gfx, kernels, ntt, quotient_cuda,
+                                     tip5_cuda)
 from triton_vm_tpu_torch.stark import jit_lde, prover
 from triton_vm_tpu_torch.stark.arithmetic_domain import Domain
 
@@ -123,6 +124,7 @@ def test_revealed_rows_match_cached_gather(ldt_stride):
 def test_jit_quotient_codeword_matches_cached(monkeypatch):
     """fib(10): the quotient domain's cosets, row-chunked (next rows roll
     across chunk edges inside a coset), against the cached codeword."""
+    from triton_vm_tpu.tables import master as jmt
     from triton_vm_tpu_torch.air.challenges import SAMPLE_COUNT, Challenges
     from triton_vm_tpu_torch.air.master import master_air
     from triton_vm_tpu_torch.tables import master as mt
@@ -135,11 +137,11 @@ def test_jit_quotient_codeword_matches_cached(monkeypatch):
         device="cpu").derive_domains(aet.padded_height())
     h, n = trace_dom.length, rand_dom.length
     main = mt.fill_main_table(aet, padded_height=h, device="cpu")
-    mt.fill_derived_main_columns(main)
+    jmt.fill_derived_main_columns(main)
     challenges = Challenges([tuple(int(c) for c in row)
                              for row in _field(4, (SAMPLE_COUNT, 3))], claim)
-    aux = mt.extend_host(main, challenges)
-    mt.fill_derived_aux_columns(main, aux, challenges.challenges)
+    aux = jmt.extend_host(main, challenges)
+    jmt.fill_derived_aux_columns(main, aux, challenges.challenges)
     main_t = gf.from_u64(np.ascontiguousarray(main.T))
     aux_t = gf.from_u64(np.ascontiguousarray(aux.transpose(1, 2, 0)))
     main_r = gf.from_u64(_field(5, (prover.NUM_MAIN, ntr)))
@@ -151,7 +153,7 @@ def test_jit_quotient_codeword_matches_cached(monkeypatch):
         prover._commit_bfe(main_t, main_r, trace_dom, quot_dom)[1],
         prover._commit_bfe(aux_t, aux_r, trace_dom, quot_dom)[1].permute(
             1, 0, 2), trace_dom, quot_dom, challenges, weights)
-    monkeypatch.setattr(prover, "_QUOTIENT_CHUNK_ROWS", n // 4)
+    monkeypatch.setattr(quotient_cuda, "CHUNK_ROWS", n // 4)
     got = jit_lde.quotient_codeword_jit(
         jit_lde.committed_coefficients(main_t, main_r, trace_dom, n),
         jit_lde.committed_coefficients(aux_t, aux_r, trace_dom, n),

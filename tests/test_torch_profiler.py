@@ -36,7 +36,6 @@ def syncs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize",
                         lambda device=None: calls.append(device))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    monkeypatch.setattr(prover, "_TRACE", False)
     return calls
 
 
@@ -211,7 +210,6 @@ def proves():
     mp.setattr(torch.cuda, "synchronize",
                lambda device=None: calls.append(device))
     mp.setattr(torch.cuda, "device_count", lambda: 1)
-    mp.setattr(prover, "_TRACE", False)
     device_span, trace = profiler.device_span, prover._trace
     mp.setattr(profiler, "device_span",
                lambda name, category, device: device_span(name, category,

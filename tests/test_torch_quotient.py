@@ -1,7 +1,9 @@
-"""The port's quotient tapes (triton_vm_tpu_torch.air.compile.run_tape_scan
-and stark.prover._all_quotients_combined_device) against the JAX
-package's exact host evaluators (air.evaluate.eval_vectorized_obj and
-stark.prover._all_quotients_combined) on a small fibonacci trace."""
+"""The port's quotient tapes (triton_vm_tpu_torch.air.compile.run_tape_scan,
+and stark.prover._all_quotients_combined_device over K3's plain version)
+against the JAX package's exact host evaluators
+(air.evaluate.eval_vectorized_obj and stark.prover._all_quotients_combined)
+on a small fibonacci trace, whose witness the JAX package's host
+extension builds."""
 
 import numpy as np
 import pytest
@@ -57,6 +59,7 @@ def test_synthetic_tape_matches_host_evaluator():
 def fib_trace():
     """Committed main/aux codewords of fibonacci(7) on a quotient domain
     of 2h rows, plus its challenges and constraint weights."""
+    from triton_vm_tpu.tables import master as jmt
     from triton_vm_tpu_torch.air.challenges import SAMPLE_COUNT, Challenges
     from triton_vm_tpu_torch.air.master import master_air
     from triton_vm_tpu_torch.models import example_programs as ex
@@ -74,12 +77,12 @@ def fib_trace():
         device="cpu").derive_domains(aet.padded_height())
     h = trace_dom.length
     main = mt.fill_main_table(aet, padded_height=h, device="cpu")
-    mt.fill_derived_main_columns(main)
+    jmt.fill_derived_main_columns(main)
     challenges = Challenges(
         [tuple(int(c) for c in row) for row in
          rng.integers(0, P, (SAMPLE_COUNT, 3), dtype=np.uint64)], claim)
-    aux = mt.extend_host(main, challenges)
-    mt.fill_derived_aux_columns(main, aux, challenges.challenges)
+    aux = jmt.extend_host(main, challenges)
+    jmt.fill_derived_aux_columns(main, aux, challenges.challenges)
     aux[:, prover.NUM_AUX - 1, :] = rng.integers(0, P, (h, 3),
                                                  dtype=np.uint64)
     quot_dom = Domain(2 * h, ldt_dom.offset)
@@ -111,10 +114,11 @@ def host_quotient(fib_trace):
 @pytest.mark.parametrize("chunk_rows", [1 << 16, 256])
 def test_quotient_codeword_matches_jax_host(fib_trace, host_quotient,
                                             monkeypatch, chunk_rows):
-    """Whole-domain and row-chunked tapes (next rows wrap across chunk
-    edges) give the JAX host quotient codeword."""
+    """Whole-domain and row-chunked row tapes (K3's plain version; next
+    rows wrap across chunk edges) give the JAX host quotient codeword."""
+    from triton_vm_tpu_torch.ops import quotient_cuda
     from triton_vm_tpu_torch.stark import prover
 
-    monkeypatch.setattr(prover, "_QUOTIENT_CHUNK_ROWS", chunk_rows)
+    monkeypatch.setattr(quotient_cuda, "CHUNK_ROWS", chunk_rows)
     got = prover._all_quotients_combined_device(*fib_trace)  # (3, Q)
     assert np.array_equal(gf.to_u64(got).T, host_quotient)

@@ -2,9 +2,10 @@
 of csrc/quotient.cu runs a row at a time) and K3's plain version
 (ops/quotient_cuda.py) against the JAX package's exact host evaluators
 (air.evaluate.eval_vectorized_obj, stark.prover._all_quotients_combined)
-and the port's level tape (run_tape_scan, _all_quotients_combined_device),
-word for word. Small sizes: a synthetic circuit, the master AIR's four
-phases on 32 random rows, fibonacci(7)'s quotient domain."""
+and the port's level tape (run_tape_scan), word for word. Small sizes: a
+synthetic circuit, the master AIR's four phases on 32 random rows,
+fibonacci(7)'s quotient domain (its witness from the JAX package's host
+extension)."""
 
 import re
 from pathlib import Path
@@ -198,6 +199,7 @@ def fib_trace():
     """Committed main/aux codewords of fibonacci(7) on a quotient domain
     of 2h rows, plus its challenges and constraint weights (as in
     test_torch_quotient.py)."""
+    from triton_vm_tpu.tables import master as jmt
     from triton_vm_tpu_torch.air.challenges import SAMPLE_COUNT, Challenges
     from triton_vm_tpu_torch.air.master import master_air
     from triton_vm_tpu_torch.models import example_programs as ex
@@ -215,12 +217,12 @@ def fib_trace():
         device="cpu").derive_domains(aet.padded_height())
     h = trace_dom.length
     main = mt.fill_main_table(aet, padded_height=h, device="cpu")
-    mt.fill_derived_main_columns(main)
+    jmt.fill_derived_main_columns(main)
     challenges = Challenges(
         [tuple(int(c) for c in row) for row in _field(rng, (SAMPLE_COUNT,
                                                             3))], claim)
-    aux = mt.extend_host(main, challenges)
-    mt.fill_derived_aux_columns(main, aux, challenges.challenges)
+    aux = jmt.extend_host(main, challenges)
+    jmt.fill_derived_aux_columns(main, aux, challenges.challenges)
     aux[:, prover.NUM_AUX - 1, :] = _field(rng, (h, 3))
     quot_dom = Domain(2 * h, ldt_dom.offset)
     _, main_q = prover._commit_bfe(
@@ -239,8 +241,9 @@ def fib_trace():
 
 @pytest.fixture(scope="module")
 def want_quotient(fib_trace):
-    """The JAX package's host quotient codeword and the port's level-tape
-    one, which must agree: numpy uint64 (3, Q)."""
+    """The JAX package's host quotient codeword and the port's prover's
+    (`_all_quotients_combined_device`), which must agree: numpy uint64
+    (3, Q)."""
     from triton_vm_tpu.stark.prover import _all_quotients_combined
     from triton_vm_tpu_torch.stark import prover
 
@@ -248,8 +251,8 @@ def want_quotient(fib_trace):
     jax = np.array(_all_quotients_combined(
         gf.to_u64(main_q), gf.to_u64(aux_q), trace_dom, quot_dom,
         challenges, weights), np.uint64).T
-    level = gf.to_u64(prover._all_quotients_combined_device(*fib_trace))
-    assert np.array_equal(jax, level)
+    port = gf.to_u64(prover._all_quotients_combined_device(*fib_trace))
+    assert np.array_equal(jax, port)
     return jax
 
 
@@ -291,8 +294,9 @@ def test_combined_quotient_matches_jax(fib_trace, want_quotient, case):
     assert np.array_equal(gf.to_u64(got), want_quotient[:, rows])
 
 
-def test_zerofier_inverses_match_the_level_tape_path():
-    """The plain version's zerofier inverses are _quotient_chunk_fn's."""
+def test_zerofier_inverses_match_their_formulas():
+    """The plain version's zerofier inverses are each phase's formula:
+    1/(x - 1), 1/(x^h - 1), (x - g^-1)/(x^h - 1) and 1/(x - g^-1)."""
     from triton_vm_tpu_torch.fields import bfe
 
     xs = gf.powers(7, 64, 5)

@@ -80,14 +80,6 @@ def compute_eval_terminal(symbols, challenge):
     return acc
 
 
-def compute_lookup_terminal(symbols, challenge):
-    """LookupArg::compute_terminal with default initial 0."""
-    acc = _xfe.ZERO
-    for s in symbols:
-        acc = _xfe.add(acc, _xfe.inv(_xfe.sub(challenge, _xfe.lift(s))))
-    return acc
-
-
 class Challenges:
     """63 XFE challenges: 59 sampled + 4 derived (challenges.rs:83-119)."""
 

@@ -1,6 +1,6 @@
 """Constraint evaluation: linearize circuit DAGs and interpret them on
-the host (Python-int XFE arithmetic; used by the verifier at the OOD point,
-by the derived-column fill and by tests). The prover's quotient runs the
+the host (Python-int XFE arithmetic; used by the verifier at the OOD point
+and by tests). The prover's quotient runs the
 same DAGs as compiled tapes on tensors (air/compile.py).
 
 Replaces the reference's build-time Rust codegen
@@ -97,54 +97,3 @@ def substitution_pairs(subs):
         out.append((var.value[0], var.value[1], neg.rhs))
     return out
 
-
-# ------------------------------------------------- vectorized host (exact)
-
-def eval_vectorized_obj(steps, out_ids, main_cols, aux_cols, challenges,
-                        next_main_cols=None, next_aux_cols=None):
-    """Vectorized exact evaluation over rows using numpy object arrays of
-    Python ints. XFE values are triples of object arrays.
-
-    main_cols: numpy object array (num_cols, n) of ints;
-    aux_cols: (c0, c1, c2) each numpy object array (num_cols, n).
-    Returns a list of XFE-triples-of-arrays, one per constraint.
-    """
-    import numpy as np
-
-    def xadd(a, b):
-        return tuple((a[i] + b[i]) % P for i in range(3))
-
-    def xmul(a, b):
-        a0, a1, a2 = a
-        b0, b1, b2 = b
-        d0 = a0 * b0
-        d1 = a0 * b1 + a1 * b0
-        d2 = a0 * b2 + a1 * b1 + a2 * b0
-        d3 = a1 * b2 + a2 * b1
-        d4 = a2 * b2
-        return ((d0 - d3) % P, (d1 + d3 - d4) % P, (d2 + d4) % P)
-
-    zero = np.zeros((), object)
-    env = {}
-    for nid, kind, payload in steps:
-        if kind == "bconst":
-            env[nid] = (np.array(payload, object), zero, zero)
-        elif kind == "xconst":
-            env[nid] = tuple(np.array(c, object) for c in payload)
-        elif kind == "challenge":
-            env[nid] = tuple(np.array(c, object)
-                             for c in challenges[payload])
-        elif kind == "input":
-            ik, col = payload
-            if ik == C.MAIN:
-                env[nid] = (main_cols[col], zero, zero)
-            elif ik == C.NEXT_MAIN:
-                env[nid] = (next_main_cols[col], zero, zero)
-            elif ik == C.AUX:
-                env[nid] = tuple(aux_cols[i][col] for i in range(3))
-            else:
-                env[nid] = tuple(next_aux_cols[i][col] for i in range(3))
-        else:
-            op, lid, rid = payload
-            env[nid] = (xadd if op == "+" else xmul)(env[lid], env[rid])
-    return [env[i] for i in out_ids]

@@ -4,9 +4,10 @@
 // phases summed.
 //
 // K3 replaces no Pallas kernel: the JAX package compiles the same function
-// with XLA, jax.jit over triton_vm_tpu/stark/prover.py::_quotient_chunk_fn
-// (:1185), which runs air/compile.py::run_tape_scan (:397), a fori_loop
-// over the level tape, chunk by chunk.
+// with XLA, jax.jit over the quotient chunk function of
+// triton_vm_tpu/stark/prover.py (:1185), which runs
+// air/compile.py::run_tape_scan (:397), a fori_loop over the level tape,
+// chunk by chunk.
 //
 // What bounds it on this card: integer multiplies. A row reads under 900
 // words of input and runs about 11,000 Goldilocks products, so at every

@@ -79,16 +79,3 @@ def batch_inverse(values: list[int]) -> list[int]:
         out[i] = prefix[i] * acc % P
         acc = acc * values[i] % P
     return out
-
-
-def montgomery_raw(a: int) -> int:
-    """The 64-bit Montgomery representation a*2^64 mod p.
-
-    The Tip5 split-and-lookup S-box operates on the bytes of this
-    representation (reference: tips/tip-0005/tip-0005.md, "S-Box").
-    """
-    return a * R % P
-
-
-def from_montgomery_raw(raw: int) -> int:
-    return raw * R_INV % P

@@ -92,14 +92,6 @@ def batch_evaluate(a, xs, F=_bfe):
     return [evaluate(a, x, F) for x in xs]
 
 
-def evaluate_bfe_poly_in_xfe(a, x):
-    """Evaluate a BFE-coefficient polynomial at an XFE point."""
-    acc = _xfe.ZERO
-    for c in reversed(a):
-        acc = _xfe.add(_xfe.mul(acc, x), _xfe.lift(c))
-    return acc
-
-
 def zerofier(roots, F=_bfe):
     """prod (x - r) over the given roots."""
     acc = [_one(F)]

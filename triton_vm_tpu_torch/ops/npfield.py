@@ -170,11 +170,6 @@ def lift(a):
     return out
 
 
-def from_tuples(rows):
-    """List (or list-of-lists) of XFE tuples -> (..., 3) u64 array."""
-    return np.asarray(rows, np.uint64)
-
-
 def to_tuples(arr):
     """(n, 3) u64 -> list of XFE tuples."""
     return [tuple(int(c) for c in row) for row in np.asarray(arr)]

@@ -15,7 +15,7 @@ O(n log n) and a tree over N points O(N log^2 N):
 - `bezout_coefficients`: the RAM table's Bezout coefficient polynomials
   (triton-vm/src/table/ram.rs:162-206, which uses twenty-first's fast
   zerofier, multipoint evaluation and interpolation), the same
-  coefficients as the O(N^2) host version in tables/master.py.
+  coefficients as the O(N^2) host version `tables/master._bezout_plain`.
 """
 
 from __future__ import annotations

@@ -8,10 +8,9 @@ its zerofier inverse, the phases summed. The tape is compiled into the
 kernels' source (ops/tape_codegen.py), not interpreted: one kernel a
 segment of it, so a chunk of rows takes about 100 launches, each counted.
 Tensors on the CPU take the plain version, `quotients_on_rows_plain`,
-which runs the same row tape one field op per instruction over all rows.
-There is no fallback: a CUDA tensor the kernel cannot take raises. The
-prover on the CPU keeps the level tape (stark/prover.py::
-_quotient_chunk_fn).
+which runs the same row tape one field op per instruction over a chunk of
+rows at a time, as the kernel does. There is no fallback: a CUDA tensor
+the kernel cannot take raises.
 
 The kernel is built at first use: the generated source is written to
 `triton_vm_tpu_torch/_build/quotient_<key>_<j>.cu`, the key a hash of the
@@ -199,9 +198,8 @@ def _reads(tape):
 # ------------------------------------------------------------ plain versions
 
 def zerofier_inverses(xs, trace_len: int, gen_inv: int):
-    """Each phase's zerofier inverse at the points xs (N,), as
-    stark/prover.py::_quotient_chunk_fn computes them: (4, N) for init
-    1/(x - 1), cons 1/(x^h - 1), tran (x - g^-1)/(x^h - 1), term
+    """Each phase's zerofier inverse at the points xs (N,): (4, N) for
+    init 1/(x - 1), cons 1/(x^h - 1), tran (x - g^-1)/(x^h - 1), term
     1/(x - g^-1)."""
     one = gf.full((), 1, xs.device)
     cons = gf.inv(gf.sub(gf.pow_const(xs, trace_len), one))
@@ -210,10 +208,11 @@ def zerofier_inverses(xs, trace_len: int, gen_inv: int):
                         gf.mul(x_minus, cons), gf.inv(x_minus)])
 
 
-def run_row_tape_plain(tape, main, aux, ch, ws, scales, shift: int):
-    """Execute a row tape over rows 0 .. N - 1 in eager torch, one field
-    op per instruction over all rows: the sum over phases p of scales[p]
-    times phase p's weighted outputs.
+def run_row_tape_plain(tape, main, aux, ch, ws, scales, shift: int,
+                       start: int = 0):
+    """Execute a row tape over rows start .. start + N - 1 in eager
+    torch, one field op per instruction over all of them: the sum over
+    phases p of scales[p] times phase p's weighted outputs.
 
     main int64 (NM, M) and aux XFE (3, NA, M) hold the rows (row i's next
     row is row (i + shift) % M); ch XFE (3, nch) the challenges; ws XFE
@@ -221,7 +220,8 @@ def run_row_tape_plain(tape, main, aux, ch, ws, scales, shift: int):
     XFE (3, N)."""
     N, M = scales.shape[-1], main.shape[1]
     dev = main.device
-    nidx = (torch.arange(N, device=dev) + shift) % M
+    rows = slice(start, start + N)
+    nidx = (torch.arange(start, start + N, device=dev) + shift) % M
     bconsts = gf.from_u64(tape.bconsts, dev)
     xconsts = gfx.from_u64(tape.xconsts, dev)               # (3, nxc)
     rb, rx = [None] * tape.num_bregs, [None] * tape.num_xregs
@@ -231,7 +231,7 @@ def run_row_tape_plain(tape, main, aux, ch, ws, scales, shift: int):
         if kind == aircomp.BREG:
             return rb[idx]
         if kind == aircomp.MAIN:
-            return main[idx, :N]
+            return main[idx, rows]
         if kind == aircomp.NEXT_MAIN:
             return main[idx, nidx]
         assert kind == aircomp.BCONST
@@ -242,7 +242,7 @@ def run_row_tape_plain(tape, main, aux, ch, ws, scales, shift: int):
         if kind == aircomp.XREG:
             return rx[idx]
         if kind == aircomp.AUX:
-            return aux[:, idx, :N]
+            return aux[:, idx, rows]
         if kind == aircomp.NEXT_AUX:
             return aux[:, idx, nidx]
         if kind == aircomp.CHALLENGE:
@@ -278,14 +278,23 @@ def run_row_tape_plain(tape, main, aux, ch, ws, scales, shift: int):
 
 
 def quotients_on_rows_plain(tape, main, aux, points, shift: int,
-                            trace_len: int, gen_inv: int, ch, ws):
+                            trace_len: int, gen_inv: int, ch, ws,
+                            chunk: int | None = None):
     """K3's plain version: `run_row_tape_plain` with the zerofier inverses
-    at the points as the phases' scales. Arguments as
-    `quotients_on_rows`."""
-    xs = points.tensor(main.device)
-    return run_row_tape_plain(tape, main, aux, ch, ws,
-                              zerofier_inverses(xs, trace_len, gen_inv),
-                              shift)
+    at the points as the phases' scales, `chunk` rows (CHUNK_ROWS by
+    default) at a time, so that its registers stay bounded at any height.
+    Arguments as `quotients_on_rows`."""
+    dev = main.device
+    N = points.n
+    chunk = chunk or CHUNK_ROWS
+    out = torch.empty((3, N), dtype=torch.int64, device=dev)
+    for s in range(0, N, chunk):
+        n = min(chunk, N - s)
+        xs = points._replace(n=n, start=points.start + s).tensor(dev)
+        out[:, s:s + n] = run_row_tape_plain(
+            tape, main, aux, ch, ws,
+            zerofier_inverses(xs, trace_len, gen_inv), shift, start=s)
+    return out
 
 
 # ------------------------------------------------------------ K3
@@ -305,10 +314,12 @@ def _check(name, t, ndim, device):
 
 
 def quotients_on_rows(tape, main, aux, points, shift: int, trace_len: int,
-                      gen_inv: int, ch, ws, chunk: int = CHUNK_ROWS):
+                      gen_inv: int, ch, ws, chunk: int | None = None):
     """The combined quotient at the N = points.n points x_i = offset *
-    generator^(start + i) (`Points`), by K3: per chunk of `chunk` rows its
-    first kernel, one kernel a segment of the tape and its last.
+    generator^(start + i) (`Points`), by K3: per chunk of `chunk` rows
+    (CHUNK_ROWS, as it stands when called, by default) its first kernel,
+    one kernel a segment of the tape and its last; CPU tensors take the
+    plain version, in chunks of the same rows.
 
     main int64 (NM, M) and aux XFE (3, NA, M), any non-negative strides
     (a strided or permuted view of an LDE is read in place): rows 0 .. N-1
@@ -321,9 +332,10 @@ def quotients_on_rows(tape, main, aux, points, shift: int, trace_len: int,
     contiguous. The tape is the quotient row tape, the one the kernel is
     built from; its state is held for `chunk` rows at a time. Returns XFE
     (3, N) on main's device."""
+    chunk = chunk or CHUNK_ROWS
     if main.device.type == "cpu":
         return quotients_on_rows_plain(tape, main, aux, points, shift,
-                                       trace_len, gen_inv, ch, ws)
+                                       trace_len, gen_inv, ch, ws, chunk)
     dev = main.device
     if dev.type != "cuda":
         raise ValueError(f"quotient_rows: expected a CUDA tensor, got {dev}")

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import functools
 import os
-import time
 
 import numpy as np
 import torch
@@ -52,23 +51,20 @@ from .arithmetic_domain import Domain
 from .proof_item import ProofItem
 from .proof_stream import Claim, Proof, ProofStream
 
-_TRACE = os.environ.get("TVM_TRACE") == "1"
-_T0 = time.time()
 _CURRENT_STAGE = None
 
 
 def _trace(msg, category=None, device=None):
     """Stage marker: closes the previous prover stage span (if any) and
-    opens a new one in the global profiler; also prints under
-    TVM_TRACE=1, on a card with the peak device memory so far. Call with
-    msg=None to close the final stage. While a profiler session is open
-    or under TVM_TRACE=1, a CUDA device's stream is synchronised first
-    (every visible card's: a prover sharded over a mesh works on
-    several), so a span holds the device work its stage enqueued; an
-    unprofiled prove runs without these synchronisations."""
+    opens a new one in the global profiler. Call with msg=None to close
+    the final stage. While a profiler session is open, a CUDA device's
+    stream is synchronised first (every visible card's: a prover sharded
+    over a mesh works on several), so a span holds the device work its
+    stage enqueued; an unprofiled prove runs without these
+    synchronisations."""
     global _CURRENT_STAGE
     if (device is not None and device.type == "cuda"
-            and (_TRACE or _profiler.recording())):
+            and _profiler.recording()):
         for card in range(torch.cuda.device_count()):
             torch.cuda.synchronize(card)
     if _CURRENT_STAGE is not None:
@@ -76,13 +72,6 @@ def _trace(msg, category=None, device=None):
     _CURRENT_STAGE = msg
     if msg is not None:
         _profiler.enter(msg, category)
-    if _TRACE and msg is not None:
-        peak = ""
-        if device is not None and device.type == "cuda":
-            peak = (f" (peak device memory so far "
-                    f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f}"
-                    " GiB)")
-        print(f"[{time.time() - _T0:8.1f}s] {msg}{peak}", flush=True)
 
 
 NUM_QUOTIENT_SEGMENTS = 4
@@ -91,9 +80,6 @@ NUM_DEEP_CODEWORD_COMPONENTS = 4
 NUM_MAIN = 379
 NUM_AUX = 91
 ZETA = 3
-# Above this many quotient-domain rows, the CPU's level tape evaluates
-# quotients in row chunks: its banks are O(num_slots x chunk) of memory.
-_QUOTIENT_CHUNK_ROWS = 1 << 16
 
 
 class ProvingError(RuntimeError):
@@ -960,30 +946,6 @@ def _segmentify(quotient, q_randomizer, quot_dom, ldt_dom):
 
 # ---------------------------------------------------------- quotient tapes
 
-def _quotient_chunk_fn(main, aux, next_main, next_aux, ch, ws, xs, h,
-                       gen_inv):
-    """All-phase quotient combiner over a chunk of quotient-domain rows:
-    each phase's tape outputs, weighted, summed and scaled by the phase's
-    zerofier inverse. Next-row values are passed in (gathered by the
-    caller), so the evaluation is pointwise and tiles freely."""
-    init_zi = gf.inv(gf.sub(xs, gf.full((), 1, xs.device)))
-    cons_zi = gf.inv(gf.sub(gf.pow_const(xs, h), gf.full((), 1, xs.device)))
-    x_minus = gf.sub(xs, gf.full((), gen_inv, xs.device))
-    zis = {"init": init_zi, "cons": cons_zi,
-           "tran": gf.mul(x_minus, cons_zi), "term": gf.inv(x_minus)}
-    acc = gfx.zeros(xs.shape, xs.device)
-    for i, ph in enumerate(("init", "cons", "tran", "term")):
-        tape = aircomp.phase_tape(ph)
-        if ph == "tran":
-            outs = aircomp.run_tape_scan(tape, main, aux, ch, next_main,
-                                         next_aux)
-        else:
-            outs = aircomp.run_tape_scan(tape, main, aux, ch)
-        inner = gfx.reduce_sum(gfx.mul(outs, ws[i][:, :, None]), 0)
-        acc = gfx.add(acc, gfx.bfe_mul(inner, zis[ph]))
-    return acc
-
-
 def _quotient_inputs(challenges, quot_weights, dev):
     """The challenges, XFE (3, 63), and each phase's constraint weights,
     XFE (3, k), on `dev`."""
@@ -1009,43 +971,29 @@ def _quotients_on_domain(main, aux, dom, shift, trace_dom, ch, ws):
 
 
 def _quotients_on_rows(main, aux, points, shift, trace_dom, ch, ws,
-                       chunk=quotient_cuda.CHUNK_ROWS):
+                       chunk=None):
     """The combined quotient at the N points of `points` (a
     `quotient_cuda.Points`: x_i = offset * generator^(start + i)) from
     the committed values in the first N columns of main int64 (NM, M) and
     aux XFE (3, NA, M); row i's next row is row (i + shift) % M: the whole
     domain cyclically where M = N, a shard's block followed by its halo
-    where M = N + shift (parallel/mesh.py). On a card K3 runs the row tape
-    (ops/quotient_cuda.py), about 100 launches a chunk of `chunk` rows,
-    reading main and aux in place and forming the points itself; on the
-    CPU the level tape runs in chunks of _QUOTIENT_CHUNK_ROWS
-    rows. Returns XFE (3, N)."""
-    dev = main.device
-    N, M = points.n, main.shape[1]
-    gen_inv = bfe.inv(trace_dom.generator)
-    if dev.type == "cuda":
-        return quotient_cuda.quotients_on_rows(
-            aircomp.quotient_row_tape(), main, aux, points, shift,
-            trace_dom.length, gen_inv, ch, torch.cat(ws, dim=1), chunk)
-    xs = points.tensor(dev)
-    C_ = min(N, _QUOTIENT_CHUNK_ROWS)
-    out = torch.empty((3, N), dtype=torch.int64, device=dev)
-    for s in range(0, N, C_):
-        idx = torch.arange(s, s + C_, device=dev)
-        nidx = (idx + shift) % M
-        out[:, s:s + C_] = _quotient_chunk_fn(
-            main.index_select(1, idx), aux.index_select(2, idx),
-            main.index_select(1, nidx), aux.index_select(2, nidx),
-            ch, ws, xs[s:s + C_], trace_dom.length, gen_inv)
-    return out
+    where M = N + shift (parallel/mesh.py). K3 runs the row tape
+    (ops/quotient_cuda.py), on a card about 100 launches a chunk of
+    `chunk` rows, reading main and aux in place and forming the points
+    itself; on the CPU its plain version, a chunk of rows at a time.
+    Returns XFE (3, N)."""
+    return quotient_cuda.quotients_on_rows(
+        aircomp.quotient_row_tape(), main, aux, points, shift,
+        trace_dom.length, bfe.inv(trace_dom.generator), ch,
+        torch.cat(ws, dim=1), chunk)
 
 
 def _all_quotients_combined_device(main_q, aux_q, trace_dom, quot_dom,
                                    challenges, quot_weights):
-    """master_table.rs:1264-1363 on tensors: run the compiled AIR tapes
-    over the quotient domain (K3 on a card, the level tape in chunks of
-    _QUOTIENT_CHUNK_ROWS rows on the CPU: `_quotients_on_rows`) and
-    combine with the weights and zerofier inverses.
+    """master_table.rs:1264-1363 on tensors: run the compiled AIR row tape
+    over the quotient domain (K3 on a card, its plain version on the CPU:
+    `_quotients_on_rows`) and combine with the weights and zerofier
+    inverses.
 
     main_q: int64 (NM, Q); aux_q: XFE (3, NA, Q). Returns XFE (3, Q)."""
     ch, ws = _quotient_inputs(challenges, quot_weights, main_q.device)

@@ -30,8 +30,9 @@ The pipeline runs in three steps on the main table's device:
 The 230 derived main and 41 derived aux columns (the degree-lowering
 substitutions) run as compiled tapes (air/compile.py) over all rows.
 `main_witness_dev` and `aux_witness_dev` give the prover the whole witness
-on the device from one upload of the 149 AIR main columns. The host
-functions of tables/master.py are their oracle (tests/test_torch_witness.py).
+on the device from one upload of the 149 AIR main columns. Their oracle
+is the JAX package's host witness, `triton_vm_tpu.tables.master`
+(tests/test_torch_witness.py).
 
 Field elements follow ops/gf.py (an int64 holding the u64 bit pattern) and
 ops/gfx.py (an XFE is a leading axis of 3); challenges are (3, 1) columns
@@ -233,7 +234,8 @@ def _op(name):
 
 
 def _decode_rows(ci, nia):
-    """_instruction_from_processor_row over all rows: (valid, arg, op).
+    """The JAX package's `_instruction_from_processor_row`
+    (triton_vm_tpu/tables/master.py) over all rows: (valid, arg, op).
     `arg` is NIA's low 32 bits as a signed int32 (sign-extended into the
     int64); it only matters under `valid`."""
     valid_t, arg_kind_t, _, _ = _opcode_tables(ci.device)
@@ -981,9 +983,9 @@ def _challenges_dev(challenges, device):
 
 
 def extend_all_device(main: np.ndarray, challenges, device) -> np.ndarray:
-    """Counterpart of tables/master.py::extend on `device`: all 9 tables,
-    49 aux columns. Returns the host (h, NUM_AUX, 3) array with the AIR
-    columns filled."""
+    """Counterpart of the JAX package's `tables.master.extend_host` on
+    `device`: all 9 tables, 49 aux columns. Returns the host
+    (h, NUM_AUX, 3) array with the AIR columns filled."""
     h = main.shape[0]
     air = _run_pipeline(gf.from_u64(np.ascontiguousarray(main.T), device),
                         _challenges_dev(challenges, device))
@@ -1103,7 +1105,8 @@ def _derived_fill_fn(main_only: bool, main_cols, aux_cols, challenges):
 def main_witness_dev(main_np: np.ndarray, device):
     """numpy (h, 379) main table with its 149 AIR columns filled -> int64
     (379, h) on `device`, the 230 derived columns computed there. One
-    upload; equal to fill_derived_main_columns (tests/test_torch_witness.py)."""
+    upload; equal to the JAX package's `fill_derived_main_columns`
+    (tests/test_torch_witness.py)."""
     h = main_np.shape[0]
     n_air = columns.NUM_MAIN_AIR_COLUMNS
     with profiler.device_span("main derived columns", "witness",
@@ -1121,8 +1124,9 @@ def main_witness_dev(main_np: np.ndarray, device):
 def aux_witness_dev(main_dev, challenges, batch_randomizer: np.ndarray):
     """int64 main (379, h) -> the aux witness as int64 (NUM_AUX, 3, h) on
     the same device: the 49 scan columns, the 41 derived columns and the
-    batch-randomizer column (host (h, 3), uploaded). Equal to extend +
-    fill_derived_aux_columns + the randomizer write."""
+    batch-randomizer column (host (h, 3), uploaded). Equal to the JAX
+    package's `extend_host` + `fill_derived_aux_columns` + the randomizer
+    write."""
     dev = main_dev.device
     h = main_dev.shape[1]
     n_air = columns.NUM_AUX_AIR_COLUMNS

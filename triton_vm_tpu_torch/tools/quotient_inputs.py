@@ -1,8 +1,7 @@
-"""Inputs and oracles for K3 (csrc/quotient.cu) on the card: random rows
-at the master AIR's full widths (379 main, 91 aux columns), K3's plain
-version over them, and the level tape over them (the CPU path's
-`_quotient_chunk_fn`). chip_smoke.py's kernels phase and the card-only
-cases of tests/test_torch_cuda.py hold K3 against both with these.
+"""Inputs and oracle for K3 (csrc/quotient.cu) on the card: random rows
+at the master AIR's full widths (379 main, 91 aux columns) and K3's plain
+version over them. chip_smoke.py's kernels phase and the card-only cases
+of tests/test_torch_cuda.py hold K3 against it with these.
 """
 
 from __future__ import annotations
@@ -71,32 +70,11 @@ def make_inputs(rng, n, device, *, halo=0, shift=4, permuted_aux=False,
             dtype=np.uint64), device))
 
 
-def level_tape(inp, start=0, stop=None):
-    """The CPU path's level tape over rows start .. stop - 1 of the same
-    inputs (the rows and their next rows gathered by index_select, as the
-    prover's chunk loop does)."""
-    from ..air.master import master_air
-    from ..stark import prover
-
-    main, aux = inp["main"], inp["aux"]
-    stop, m = inp["points"].n if stop is None else stop, main.shape[1]
-    xs = inp["points"]._replace(n=stop).tensor(main.device)
-    idx = torch.arange(start, stop, device=main.device)
-    nidx = (idx + inp["shift"]) % m
-    cuts = np.cumsum([0] + [len(master_air().constraints[ph])
-                            for ph in aircomp.PHASES])
-    ws = [inp["ws"][:, a:b] for a, b in zip(cuts[:-1], cuts[1:])]
-    return prover._quotient_chunk_fn(
-        main.index_select(1, idx), aux.index_select(2, idx),
-        main.index_select(1, nidx), aux.index_select(2, nidx), inp["ch"], ws,
-        xs[start:stop], inp["trace_len"], inp["gen_inv"])
-
-
 def k3(inp):
     return quotient_cuda.quotients_on_rows(aircomp.quotient_row_tape(),
                                            **inp)
 
 
-def plain(inp):
+def plain(inp, chunk=None):
     return quotient_cuda.quotients_on_rows_plain(
-        aircomp.quotient_row_tape(), **inp)
+        aircomp.quotient_row_tape(), **inp, chunk=chunk)

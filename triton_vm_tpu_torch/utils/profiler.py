@@ -285,14 +285,6 @@ def exit(name: str) -> None:
         _ACTIVE.exit(name)
 
 
-def _weight(relative: float) -> int:
-    """0..6 weight bucket (profiler.rs:552-563)."""
-    for i, threshold in enumerate((0.4, 0.3, 0.2, 0.1, 0.07, 0.04)):
-        if relative >= threshold:
-            return 6 - i
-    return 0
-
-
 @dataclass
 class PerformanceProfile:
     """Finished profile; str() renders the report (profiler.rs:591-864)."""
