@@ -315,3 +315,98 @@ def test_ntt_kernel_refuses_what_it_cannot_take(cuda):
         ntt_cuda.ntt_rows(x, root, 96)
     with pytest.raises(ValueError, match="overlaps"):
         ntt_cuda.ntt_rows(x, root, 64, out=x)
+
+
+def _merkle_openings(device):
+    """Openings of trees of 2^0 to 2^12 leaves (one leaf, adjacent
+    siblings, repeated indices whose earlier copy is wrong, every leaf),
+    each as given and with a leaf word, an authentication word or a root
+    word changed: [(root, n, indices, digests, authentication nodes)]."""
+    from triton_vm_tpu_torch.crypto import merkle
+
+    out = []
+    for log2_n in range(13):
+        n = 1 << log2_n
+        rng = np.random.default_rng(log2_n)
+        leaves = _field(100 + log2_n, (n, 5))
+        tree = merkle.MerkleTree(leaves, device)
+        kinds = [[int(rng.integers(0, n))],
+                 [n - 1 - (n > 1), n - 1] + [int(i) for i in
+                                             rng.integers(0, n, 5)],
+                 [int(i) for i in rng.integers(0, n, 9)],
+                 [int(i) for i in rng.permutation(min(n, 256))]]
+        for j, idx in enumerate(kinds):
+            digests = [tuple(int(x) for x in leaves[i]) for i in idx]
+            if j == 2:
+                idx = idx + idx[:2]
+                digests = [(1, 2, 3, 4, 5)] * 2 + digests[2:] + digests[:2]
+            auth = tree.authentication_structure(idx)
+            root = tree.root()
+            out.append((root, n, idx, digests, auth))
+            for tamper in range(3):
+                d, a, r = list(digests), list(auth), root
+                if tamper == 0:
+                    d[-1] = (d[-1][0] ^ 1,) + d[-1][1:]
+                elif tamper == 1 and a:
+                    a[-1] = a[-1][:4] + ((a[-1][4] + 1) % P,)
+                else:
+                    r = (r[0], (r[1] + 1) % P) + r[2:]
+                out.append((r, n, idx, d, a))
+    return out
+
+
+def test_merkle_path_checks_on_the_card_equal_cpu(cuda):
+    """`verify_authentication_structures` on the card (one node buffer,
+    K1 a step, one read of the roots) gives the CPU's verdicts (the
+    native scalar Tip5) on every opening: as one batch, tree by tree, and
+    with the leaf digests handed over as card tensors."""
+    from triton_vm_tpu_torch.crypto import merkle
+
+    corpus = _merkle_openings(cuda)
+    want = merkle.verify_authentication_structures(corpus, "cpu")
+    assert True in want and False in want
+    assert merkle.verify_authentication_structures(corpus, cuda) == want
+    on_card = [(r, n, i, gf.from_u64(np.asarray(d, np.uint64).T, cuda), a)
+               for r, n, i, d, a in corpus]
+    assert merkle.verify_authentication_structures(on_card, "cpu") == want
+    assert [merkle.verify_authentication_structure(*o) for o in on_card] \
+        == want
+
+
+@pytest.mark.parametrize("log2_height", [16, 15])
+def test_spin_verify_reads_once_a_tree(cuda, log2_height):
+    """A profiled verify of a spin proof on the card (STIR at 2^16, FRI at
+    2^15): every tree is rebuilt with one read of its root, so the
+    `merkle` span reads three times (main, aux, quotient), each of STIR's
+    inclusion proofs once and FRI's LDT once (its rounds and last
+    codeword as one batch), as the leaf digests' reads did before; the
+    parents hashed are counted (`merkle hashed nodes`)."""
+    import triton_vm_tpu_torch as tvm
+    from triton_vm_tpu_torch.crypto import merkle
+    from triton_vm_tpu_torch.models import example_programs as ex
+    from triton_vm_tpu_torch.utils import profiler
+
+    program, iterations = ex.spin(log2_height)
+    stark, claim, proof = tvm.prove_program(program, [iterations],
+                                            seed=bytes(range(32)))
+    profiler.start("verify")
+    try:
+        assert tvm.verify(stark, claim, proof)
+    finally:
+        profile = profiler.finish()
+    reads, hashed = {}, {}
+    for iv in profile.intervals():
+        reads.setdefault(iv.path, []).append(
+            iv.counts.get(profiler.DEVICE_READS, 0))
+        hashed[iv.path] = hashed.get(iv.path, 0) + iv.counts.get(
+            merkle.HASHED_NODES, 0)
+    assert reads[("verify", "merkle")] == [3]
+    assert hashed[("verify", "merkle")] > 0
+    stir_path = ("verify", "LDT", "STIR verify inclusion proofs")
+    if log2_height == 16:
+        assert reads[stir_path] and set(reads[stir_path]) == {1}
+        assert hashed[stir_path] > 0
+    else:
+        assert stir_path not in reads
+        assert reads[("verify", "LDT")] == [1]
+        assert hashed[("verify", "LDT")] > 0

@@ -2,8 +2,8 @@
 CPU: sessions, intervals on `time.time_ns`, counters and the process's
 totals; no recording and no synchronisation without a session (a stub
 CUDA device and a recording `torch.cuda.synchronize`); the spans of a
-small prove and verify, and the same proof words with a session open and
-without one."""
+small prove and verify, the verify's `merkle hashed nodes` counts, and
+the same proof words with a session open and without one."""
 
 import time
 
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import triton_vm_tpu_torch as tvm
+from triton_vm_tpu_torch.crypto import merkle
 from triton_vm_tpu_torch.models import example_programs as ex
 from triton_vm_tpu_torch.ops import gf
 from triton_vm_tpu_torch.stark import prover
@@ -292,3 +293,17 @@ def test_verify_spans(proves):
     assert children[()] == {"verify"}
     assert children[("verify",)] == {"decode", "AIR", "DEEP", "LDT",
                                      "merkle"}
+
+
+def test_verify_counts_merkle_hashed_nodes(proves):
+    """The verify's Merkle checks count the parents they hash on their own
+    spans: the three trees of the revealed rows (one set of indices, so
+    a multiple of three) under `merkle`, FRI's rounds and last codeword
+    under `LDT`."""
+    counts = {iv.path: iv.counts.get(merkle.HASHED_NODES, 0)
+              for iv in proves["verify"].intervals()}
+    assert counts[("verify", "merkle")] > 0
+    assert counts[("verify", "merkle")] % 3 == 0
+    assert counts[("verify", "LDT")] > 0
+    assert sum(counts.values()) == \
+        counts[("verify", "merkle")] + counts[("verify", "LDT")]

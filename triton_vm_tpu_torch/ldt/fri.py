@@ -164,8 +164,9 @@ class Fri:
     # -------------------------------------------------------------- verifier
 
     def verify(self, proof_stream, device="cpu"):
-        """Returns (first_round_indices, partial_first_codeword). The last
-        round's Merkle tree is rebuilt on `device`."""
+        """Returns (first_round_indices, partial_first_codeword). The
+        revealed paths and the last round's Merkle tree are rebuilt on
+        `device` as one batch (one read of their roots on a card)."""
         num_rounds = self.num_rounds()
         # initialize: read merkle roots, sample folding challenges
         domains = [self.domain]
@@ -187,20 +188,31 @@ class Fri:
         a_indices = proof_stream.sample_indices(
             self.domain.length, self.num_collinearity_checks)
 
-        # receive & authenticate partial codewords
+        # receive the partial codewords, then authenticate them and the
+        # last codeword (its whole tree: every leaf, no authentication
+        # node) as one batch on `device`
         partial_a = [None] * (num_rounds + 1)
         partial_b = [None] * (num_rounds + 1)
         response = proof_stream.dequeue().expect("FriResponse")
         partial_a[0] = response["queried_leaves"]
-        self._authenticate(roots[0], domains[0], a_indices,
-                           partial_a[0], response["auth_structure"])
+        trees = [(roots[0], domains[0].length, a_indices, partial_a[0],
+                  response["auth_structure"])]
         for r in range(num_rounds):
             b_indices = [(a + domains[r].length // 2) % domains[r].length
                          for a in a_indices]
             response = proof_stream.dequeue().expect("FriResponse")
             partial_b[r] = response["queried_leaves"]
-            self._authenticate(roots[r], domains[r], b_indices,
-                               partial_b[r], response["auth_structure"])
+            trees.append((roots[r], domains[r].length, b_indices,
+                          partial_b[r], response["auth_structure"]))
+        last_n = domains[-1].length
+        trees.append((roots[-1], last_n, range(last_n), last_codeword, []))
+        ok = merkle.verify_authentication_structures(
+            [(tuple(root), n, idx, [xfe_to_digest(x) for x in leaves], auth)
+             for root, n, idx, leaves, auth in trees], device)
+        if not all(ok[:-1]):
+            raise LdtError("bad merkle authentication path")
+        if not ok[-1]:
+            raise LdtError("bad merkle root for last codeword")
 
         # fold rounds
         for r in range(num_rounds):
@@ -217,11 +229,6 @@ class Fri:
                 folded.append(_colinear_y((ax, ay), (bx, by), ch))
             partial_a[r + 1] = folded
 
-        # authenticate last round codeword
-        digests = np.array([xfe_to_digest(x) for x in last_codeword], np.uint64)
-        if merkle.MerkleTree(digests, device).root() != tuple(roots[-1]):
-            raise LdtError("bad merkle root for last codeword")
-        last_n = domains[-1].length
         last_a_idx = [a % last_n for a in a_indices]
         received = [last_codeword[i] for i in last_a_idx]
         if received != partial_a[num_rounds]:
@@ -236,13 +243,6 @@ class Fri:
 
         first_a_indices = [a % self.domain.length for a in a_indices]
         return first_a_indices, partial_a[0]
-
-    def _authenticate(self, root, domain, indices, leaves, auth):
-        digests = [xfe_to_digest(x) for x in leaves]
-        ok = merkle.verify_authentication_structure(
-            tuple(root), domain.length, indices, digests, auth)
-        if not ok:
-            raise LdtError("bad merkle authentication path")
 
 
 def _fold(domain: Domain, cw, challenge):

@@ -386,9 +386,7 @@ class Stir:
 
         rows = np.array(queried_leaves, np.uint64).reshape(
             len(queried_leaves), 3 * k)
-        digests = gf.to_u64(tip5_kernel.sponge_absorb_rows(
-            gf.from_u64(rows, device))).T
-        digests = [tuple(int(x) for x in d) for d in digests]
+        digests = tip5_kernel.sponge_absorb_rows(gf.from_u64(rows, device))
         if not merkle.verify_authentication_structure(
                 root, folded_len, folded_indices, digests, auth_structure):
             raise LdtError("bad STIR merkle authentication")

@@ -720,6 +720,9 @@ class Verifier:
                         digests, auth):
                     raise VerificationError(
                         f"{what} codeword authentication failure")
+                if collector is not None:
+                    digests = [tuple(int(x) for x in d)
+                               for d in gf.to_u64(digests).T]
                 return arr, digests, auth
 
             main_arr, main_digests, main_auth = check_rows(
@@ -816,12 +819,11 @@ def _reveal_gather_fn(main_lde, aux_lde, segs, indices, *, stride):
             gf.to_u64(segs.index_select(2, idx)))
 
 
-def _row_digests(rows_u64: np.ndarray, device) -> list:
-    """Tip5 hash_varlen of every row of a (t, n) u64 array: one batched
-    row sponge on `device` (the prover's commit kernel on a card)."""
-    digests = gf.to_u64(tip5_kernel.sponge_absorb_rows(
-        gf.from_u64(rows_u64, device))).T
-    return [tuple(int(x) for x in d) for d in digests]
+def _row_digests(rows_u64: np.ndarray, device):
+    """Tip5 hash_varlen of every row of a (t, n) u64 array, (5, t) on
+    `device`: one batched row sponge (the prover's commit kernel on a
+    card), left there for the Merkle check."""
+    return tip5_kernel.sponge_absorb_rows(gf.from_u64(rows_u64, device))
 
 
 @functools.lru_cache(maxsize=None)
