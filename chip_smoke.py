@@ -130,6 +130,10 @@ in the VM, a full verification: padded height 2^21, JIT asserted; before
 it, K1 at B = 2^23 and K2 at its shapes (2^22 rows of 379 and 273
 column-major, 2^24 rows of 15, 2^22 rows of 12) are held against their
 plain versions, and both kernels' per-prove totals are timed.
+[spin_131072] and [spin_131072_jit], only when named (both together),
+prove `spin(17)` (padded height 2^17, the largest cached cell's) on the
+cached path and then with the JIT LDE forced, the same claim and seed:
+the JIT proof must equal the cached one word for word, as in 8.
 [hash_chain_1048576], only when named (in a call of its own, after
 `kernels`, which holds its shapes, spin_1048576's), is config 3 at padded
 height 2^20 (input 40000: 240,036 hash rows, a full cascade table of
@@ -270,13 +274,16 @@ PATHS = ("fib_1024", "spin_32768", "fib_1024_stir", "spin_65536",
          "spin_65536_jit", "mesh", "recursive_verifier", "factorial_4096",
          "hash_chain", "merkle_auth", "hash_chain_65536", "spin_1048576",
          "spin_262144", "spin_524288", "recursive_verifier_full",
-         "hash_chain_1048576")
+         "hash_chain_1048576", "spin_131072", "spin_131072_jit")
 PHASES = ("kernels",) + PATHS + ("witness", "bench")
 OPTIONAL_PHASES = ("spin_262144", "spin_524288", "recursive_verifier_full",
-                   "hash_chain_1048576")
+                   "hash_chain_1048576", "spin_131072", "spin_131072_jit")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPTIONAL_PHASES)
 SPIN_HEIGHTS = {"spin_32768": 15, "spin_65536": 16, "spin_65536_jit": 16,
-                "spin_1048576": 20, "spin_262144": 18, "spin_524288": 19}
+                "spin_1048576": 20, "spin_262144": 18, "spin_524288": 19,
+                "spin_131072": 17, "spin_131072_jit": 17}
+# the forced-JIT paths, each held against the cached proof of its twin
+JIT_TWINS = {"spin_65536_jit": "spin_65536", "spin_131072_jit": "spin_131072"}
 # BASELINE config 3 at the prover's heights: hash_chain input 4000 and
 # 40000 (log2 of the padded height)
 HASH_CHAIN_CELLS = {"hash_chain_65536": (4000, 16),
@@ -1391,7 +1398,7 @@ def drive_path(name, proofs):
     """One proving path of the main path, with every launch count set to
     0 just before it and read just after; every kernel must have been
     launched. `proofs` holds the proofs of this run by path name
-    (spin_65536_jit is held against spin_65536's) and config 5's built
+    (a JIT_TWINS path is held against its twin's) and config 5's built
     verifier core (the witness phase reuses it). Every prove's quotient
     stage must run K3 and every transform K4 (`through_kernels`); K4's
     call shapes go to K4_CALLS[name]. Returns the counts."""
@@ -1439,17 +1446,18 @@ def drive_proofs(name, proofs):
     else:
         log2_height = SPIN_HEIGHTS[name]
         program, iterations = ex.spin(log2_height)
-        forced = name == "spin_65536_jit"
+        forced = name in JIT_TWINS
         proof, _ = prove_at_height(name, program, [iterations],
                                    log2_height, forced_jit=forced)
         if forced:
-            w, want = proof.words, proofs["spin_65536"].words
+            twin = JIT_TWINS[name]
+            w, want = proof.words, proofs[twin].words
             digests = [tuple(tip5.hash_varlen([len(x) + 1, len(x)] + x))
                        for x in (w, want)]
             if w != want or digests[0] != digests[1]:
                 raise AssertionError(f"{name}: the JIT proof differs from "
-                                     f"spin_65536's ({digests})")
-            log(f"{name}: proof equals spin_65536's word for word "
+                                     f"{twin}'s ({digests})")
+            log(f"{name}: proof equals {twin}'s word for word "
                 f"(digest {digests[0]})")
         proofs[name] = proof
 
@@ -1792,8 +1800,9 @@ def main(argv=None):
     phases = set(args.phases.split(","))
     if not phases <= set(PHASES):
         ap.error(f"unknown phases: {sorted(phases - set(PHASES))}")
-    if "spin_65536_jit" in phases and "spin_65536" not in phases:
-        ap.error("spin_65536_jit is held against spin_65536: name both")
+    for jit, twin in JIT_TWINS.items():
+        if jit in phases and twin not in phases:
+            ap.error(f"{jit} is held against {twin}: name both")
     if "mesh" in phases:
         phases.add("spin_65536")  # the mesh proof is held against its proof
 

@@ -21,7 +21,8 @@ shares). The evaluation domain (length E = m * n) is then m cosets:
 
 Peak memory is the coefficients plus one coset of each table, O(num_cols *
 n) instead of O(num_cols * E). Spans within the prover's stages time each
-coset loop, synchronised on CUDA.
+coset loop, synchronised on CUDA, and the counter `JIT cosets` counts one
+per coset transform of a table's coefficients (in a session only).
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ from ..fields.bfe import P
 from ..ops import gf, ntt, tip5_kernel
 from ..utils import profiler
 from .arithmetic_domain import Domain
+
+JIT_COSETS = "JIT cosets"
 
 
 def committed_coefficients(cols, rand, trace_dom, n):
@@ -79,6 +82,7 @@ def committed_digests(coeffs, eval_dom, ldt_len):
             continue
         with profiler.device_span("JIT coset NTT", "LDE", dev):
             values = ntt.ntt(coeffs, offset).view(-1, n)
+            profiler.count(JIT_COSETS)
         with profiler.device_span("JIT coset hash", "LDE", dev):
             # the K2 row sponge reads the column-major coset in place
             digests[:, t // stride::m // stride] = \
@@ -105,6 +109,7 @@ def reveal_rows(coeffs, eval_dom, ldt_len, indices):
             continue
         with profiler.device_span("JIT coset NTT", "LDE", dev):
             values = ntt.ntt(coeffs, offset)
+            profiler.count(JIT_COSETS)
         rows = torch.as_tensor(g[pos] // m, device=dev)
         out[..., torch.as_tensor(pos, device=dev)] = \
             values.index_select(-1, rows)
@@ -138,6 +143,7 @@ def quotient_codeword_jit(main_coeffs, aux_coeffs, trace_dom, quot_dom,
         with profiler.device_span("JIT coset NTT", "LDE", dev):
             main_c = ntt.ntt(main_coeffs, offset)
             aux_c = ntt.ntt(aux_coeffs, offset).permute(1, 0, 2)
+            profiler.count(JIT_COSETS, 2)
         with profiler.device_span("JIT coset quotients", "LDE", dev):
             out[:, t::m] = prover._quotients_on_domain(
                 main_c, aux_c, Domain(n, offset), unit // m,
