@@ -15,8 +15,9 @@ session of its own:
 
 1. versions, the card's name and power limit, the build of both Tip5
    kernels, of K3 (its source generated from the row tape, its units
-   compiled in parallel processes) and of K4 from csrc/ (the three
-   builds started together, seconds printed) and ptxas's report for each
+   compiled in parallel processes), of K4 and of the randomizer kernel
+   from csrc/ (the four builds started together, seconds printed) and
+   ptxas's report for each
    kernel (registers, spills, stack, shared memory; K3's segment kernels
    summed, with its build's seconds);
 2. [kernels] K1 (Tip5 permutation) against its plain torch version on
@@ -50,6 +51,13 @@ session of its own:
    2^22 to 2^24 words, an iNTT with its scale, `lde` with padding, a
    ragged 1001 rows; each timed with its bound, the plain version timed
    at the 379 x 2^21 coset of a 2^20 prove;
+3d. [kernels] the randomizer kernel (ChaCha12 draws of field elements,
+   csrc/chacha12.cu) against its plain version (the host's numpy
+   keystream, `stdrng_cuda.draw_plain`) at a 2^20 and a 2^16 prove's four
+   draw calls (379 rows of ntr BFEs, 91 rows of ntr XFEs, the batch
+   randomizer's h XFEs, the quotient randomizer's n_qr XFEs), two seeds
+   each; kernel times at every call shape of 2^15, 2^16, 2^17 and 2^20
+   proves beside the bound, summed per prove, the plain version's beside;
 4. [fib_1024] the main path on the card: `prove_program` on fibonacci
    input 85 (padded height 2^10, FRI) with seed bytes(range(32)), the
    proof digest held against the JAX package's, `Stark.verify` accepting
@@ -61,6 +69,8 @@ session of its own:
    verify, tamper check;
 7. [spin_65536] the main path at padded height 2^16 (`spin(16)`, LDT
    domain 2^19), where `Stark` chooses STIR: prove, verify, tamper check;
+   its digest held against the same proof with the randomizers drawn on
+   the host (HOST_RNG_SPIN16_DIGEST);
 8. [spin_65536_jit] the same claim and seed with the JIT LDE forced
    (`config.overwrite_lde_trace_caching_to(CacheDecision.JIT)`, 4 cosets
    a table): the proof must equal spin_65536's word for word; verify,
@@ -160,7 +170,11 @@ coset of the main and aux tables on the JIT path) and STIR tree, and K3
 once (once per coset on the JIT path; a call launches a first kernel, one
 a segment and a last one per chunk of rows, and each launch counts), as
 the per-prove totals assume. No single-device prove may build a power
-table of more than 2^12 words on the host (`npfield.long_tables`).
+table of more than 2^12 words on the host (`npfield.long_tables`), and
+every prove draws all its randomizers on the card: its profile's
+`randomizer draws` must equal the four calls' draws at its height, and
+the host keystream raises (rows the kernel flagged, redrawn on the host
+with the scalar `ChaCha12Rng`, are printed).
 While a path proves, the quotient stage's level-tape chunk function,
 K3's plain versions and the NTT's plain network raise if handed a tensor
 on the card (the derived columns' fill still runs `run_tape_scan` there),
@@ -326,6 +340,22 @@ K3_REPLACES = "triton_vm_tpu/stark/prover.py:1185"
 SOURCE_K4 = "triton_vm_tpu_torch/csrc/ntt.cu"
 # neither has K4: the JAX package computes the transform with XLA
 K4_REPLACES = "triton_vm_tpu/ops/ntt.py:70"
+SOURCE_RNG = "triton_vm_tpu_torch/csrc/chacha12.cu"
+# 32-bit operations of one ChaCha12 block: 6 double rounds of 8 quarter
+# rounds of 4 adds, 4 xors and 4 rotates, then 16 adds of the input state
+INT32_OPS_PER_CHACHA12_BLOCK = 6 * 8 * 12 + 16
+# Proof digest (as JAX_FIB85_DIGEST's) of spin(16) proven on the card with
+# seed bytes(range(32)) by the port as it was before the randomizers were
+# drawn on the card (the host's numpy keystream, uploaded): a card proof
+# at padded height 2^16 must still equal it word for word, since any
+# randomizer gives a valid proof and `verify` cannot tell.
+# Computed on an H100 at commit e4d2b62, where the prover drew them on the
+# host: tip5.hash_varlen over the words of
+#   Stark(device="cuda").prove(spin(16)'s claim and trace,
+#                              seed=bytes(range(32)))
+HOST_RNG_SPIN16_DIGEST = (2241502005789772168, 4913934641578679542,
+                          12900401482629750527, 9375485281862461012,
+                          13677339184192693677)
 # K4's call shapes on each proving path of this run, by path: Counter of
 # (rows, n_in, length, input scaled, output scaled)
 K4_CALLS = {}
@@ -470,21 +500,23 @@ def phase_build():
     memory)."""
     import torch
 
-    tip5_cuda, quotient_cuda, ntt_cuda = kernel_modules()
+    tip5_cuda, quotient_cuda, ntt_cuda, stdrng_cuda = kernel_modules()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     log(f"device: {torch.cuda.get_device_name(0)} "
         f"(count {torch.cuda.device_count()})")
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         k3 = pool.submit(quotient_cuda.load)
         k4 = pool.submit(ntt_cuda.load)
+        rng = pool.submit(stdrng_cuda.load)
         secs = tip5_cuda.load()
-        k3_secs, k4_secs = k3.result(), k4.result()
+        k3_secs, k4_secs, rng_secs = k3.result(), k4.result(), rng.result()
     log(f"built Tip5 kernels from {SOURCE} in {secs:.1f} s, K3 from "
         f"{SOURCE_K3} in {k3_secs:.1f} s, K4 from {SOURCE_K4} in "
-        f"{k4_secs:.1f} s (the three builds started together)")
+        f"{k4_secs:.1f} s, the randomizer kernel from {SOURCE_RNG} in "
+        f"{rng_secs:.1f} s (the four builds started together)")
     report = {**tip5_cuda.ptxas_report(), **quotient_cuda.ptxas_report(),
-              **ntt_cuda.ptxas_report()}
+              **ntt_cuda.ptxas_report(), **stdrng_cuda.ptxas_report()}
     for name, rec in report.items():
         log(f"ptxas {name}: {json.dumps(rec)}")
     return report
@@ -1006,15 +1038,143 @@ def k4_per_prove(calls, bound, k4):
         k4["per_prove_calls"] = {p: v[2] for p, v in per_prove.items()}
 
 
-def kernel_modules():
-    """The wrappers of K1 and K2, K3 and K4."""
-    from triton_vm_tpu_torch.ops import ntt_cuda, quotient_cuda, tip5_cuda
+def randomizer_calls(log2_height, stark=None):
+    """(seed offsets, n, xfe) of the prover's four randomizer draws at
+    padded height 2^log2_height with `stark` (the default Stark if None;
+    its low-degree test sets ntr) (stark/prover.py): the main table's
+    trace randomizers (379 rows of ntr BFEs), the aux table's (91 rows of
+    ntr XFEs), the batch randomizer (one row of h XFEs) and the quotient
+    randomizer (one row of n_qr XFEs)."""
+    from triton_vm_tpu_torch import Stark
+    from triton_vm_tpu_torch.stark.prover import NUM_AUX, NUM_MAIN
 
-    return tip5_cuda, quotient_cuda, ntt_cuda
+    stark = stark or Stark(device="cpu")
+    _, ntr, *_ = stark.derive_domains(1 << log2_height)
+    n_qr = Stark.num_quotient_table_randomizers(ntr)
+    end = NUM_MAIN + NUM_AUX
+    return [(range(NUM_MAIN), ntr, False), (range(NUM_MAIN, end), ntr, True),
+            ([end], 1 << log2_height, True), ([end + 1], n_qr, True)]
+
+
+def randomizer_draws(calls):
+    """BFEs drawn by `calls` (as randomizer_calls gives them)."""
+    return sum(len(o) * n * (3 if x else 1) for o, n, x in calls)
+
+
+def rng_label(offsets, n, xfe):
+    return f"{len(offsets)} x {3 * n if xfe else n}" + (" xfe" if xfe else "")
+
+
+def rng_time(offsets, n, xfe, bound):
+    """The randomizer kernel's time at one call shape (ms, CUDA events,
+    its launches alone over buffers made once), its bound (ms, what bounds
+    it), and the whole `draw` (ms: the buffers, the keys' upload, the
+    launch and the flag read)."""
+    import torch
+
+    from triton_vm_tpu_torch.ops import stdrng_cuda
+    from triton_vm_tpu_torch.utils import stdrng
+
+    dev = torch.device("cuda")
+    out, flags = stdrng_cuda.launch(stdrng.offset_seeds(SEED, offsets), n,
+                                    xfe, dev)
+    keys = torch.zeros((len(offsets), 8), dtype=torch.int32, device=dev)
+    rows, per_row = len(offsets), 3 * n if xfe else n
+    ms = time_ms(lambda: stdrng_cuda.enqueue(keys, per_row, 3 if xfe else 1,
+                                             out, flags), 50)
+    call_ms = time_ms(lambda: stdrng_cuda.draw(SEED, offsets, n, xfe=xfe,
+                                               device=dev), 20)
+    # each draw written once (8 bytes), each row's key read and flag
+    # written once (32 + 8 bytes); one ChaCha12 block a 4 draws
+    bound_ms, bound_by = bound.ops(
+        8 * rows * per_row + 40 * rows,
+        rows * -(-per_row // 4) * INT32_OPS_PER_CHACHA12_BLOCK)
+    return ms, bound_ms, bound_by, call_ms
+
+
+def phase_rng(rng, bound):
+    """The randomizer kernel (csrc/chacha12.cu) on the card, word for word
+    against its plain version (`stdrng_cuda.draw_plain`: the host's numpy
+    keystream in the same layout, uploaded) at the main path's call shapes
+    of a 2^20 prove (379 x 228 BFEs; 91 rows of 3 x 228 XFE-major; one row
+    of 3 x 2^20 and one of 3 x 1145) and of a 2^16 one, each with the
+    prover's seed and a random one; the plain version timed at each of
+    them, the kernel at every call shape of a 2^15, 2^16, 2^17 and 2^20
+    prove beside its bound, and summed per prove."""
+    import torch
+
+    from triton_vm_tpu_torch.ops import stdrng_cuda
+    from triton_vm_tpu_torch.utils import stdrng
+
+    dev = torch.device("cuda")
+    per_height = {k: randomizer_calls(k) for k in (15, 16, 17, 20)}
+    shapes = {rng_label(*c): c for calls in per_height.values()
+              for c in calls}
+    checked = [rng_label(*c) for k in (20, 16) for c in per_height[k]]
+    seeds = [SEED, bytes(rng.integers(0, 256, 32, dtype="uint8"))]
+    plain_ms, by_shape = {}, {}
+    for label in checked:
+        offsets, n, xfe = shapes[label]
+        for seed in seeds:
+            got = stdrng_cuda.draw(seed, offsets, n, xfe=xfe, device=dev)
+            t0 = time.perf_counter()
+            want = stdrng_cuda.draw_plain(seed, offsets, n, xfe, dev)
+            torch.cuda.synchronize()
+            plain_ms.setdefault(label, (time.perf_counter() - t0) * 1e3)
+            if not torch.equal(got, want):
+                raise AssertionError(f"the randomizer kernel disagrees with "
+                                     f"its plain version at {label}: "
+                                     f"{max_abs_err(got, want)}")
+    for label, (offsets, n, xfe) in shapes.items():
+        by_shape[label] = rng_time(offsets, n, xfe, bound)
+        ms, bms, by, call_ms = by_shape[label]
+        plain = (f"; plain {plain_ms[label]:.1f} ms" if label in plain_ms
+                 else "")
+        log(f"randomizer kernel {label}: {ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}), {100 * bms / ms:.1f}% of it; with the flag read "
+            f"{call_ms:.4f} ms{plain}")
+    per_prove, per_prove_bound, per_prove_call = {}, {}, {}
+    for k, calls in per_height.items():
+        labels = [rng_label(*c) for c in calls]
+        key = f"2^{k}"
+        per_prove[key] = sum(by_shape[lb][0] for lb in labels)
+        per_prove_bound[key] = sum(by_shape[lb][1] for lb in labels)
+        per_prove_call[key] = sum(by_shape[lb][3] for lb in labels)
+        log(f"randomizer kernel per {key} prove (4 launches, "
+            f"{randomizer_draws(calls)} draws): {per_prove[key]:.4f} ms, "
+            f"bound {per_prove_bound[key]:.4f} ms, with the flag reads "
+            f"{per_prove_call[key]:.4f} ms")
+    head = rng_label(*per_height[20][2])
+    ms, bound_ms, bound_by, _ = by_shape[head]
+    plain_20 = sum(plain_ms[rng_label(*c)] for c in per_height[20])
+    log(f"randomizer kernel ok (max_abs_err 0 at {len(checked)} shapes, "
+        f"two seeds each); {head}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms[head]:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}); a "
+        f"2^20 prove's four calls: kernel {per_prove['2^20']:.4f} ms, plain "
+        f"{plain_20:.1f} ms")
+    return dict(name="chacha12_bfe", route="cuda", source=SOURCE_RNG,
+                replaces=None, max_abs_err=0, ms=ms,
+                plain_ms=plain_ms[head], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                ms_by_shape={k: v[0] for k, v in by_shape.items()},
+                bound_ms_by_shape={k: v[1] for k, v in by_shape.items()},
+                call_ms_by_shape={k: v[3] for k, v in by_shape.items()},
+                plain_ms_by_shape=plain_ms, per_prove_ms=per_prove,
+                per_prove_bound_ms=per_prove_bound,
+                per_prove_call_ms=per_prove_call)
+
+
+def kernel_modules():
+    """The wrappers of K1 and K2, K3, K4 and the randomizer kernel."""
+    from triton_vm_tpu_torch.ops import (ntt_cuda, quotient_cuda, stdrng_cuda,
+                                         tip5_cuda)
+
+    return tip5_cuda, quotient_cuda, ntt_cuda, stdrng_cuda
 
 
 def all_launches():
-    """Every kernel's launches so far: K1, K2, K3 and K4 (one a pass)."""
+    """Every kernel's launches so far: K1, K2, K3, K4 (one a pass) and the
+    randomizer kernel (one a draw call)."""
     return {k: n for m in kernel_modules() for k, n in m.launches.items()}
 
 
@@ -1038,11 +1198,15 @@ def through_kernels():
     network (`ntt._transform_plain`) raise if they are handed a tensor on
     the card, so every prove's quotient stage must go through K3 and every
     transform through K4; K4's calls are recorded by shape (yielded, a
-    Counter). `run_tape_scan` is not guarded: the derived columns' fill
+    Counter); the host's numpy keystream (`stdrng.drbg_bfes_batch`) raises
+    whatever it is handed, so every randomizer is drawn by the kernel.
+    `run_tape_scan` is not guarded: the derived columns' fill
     (tables/extend_device.py) runs it on the card."""
     from triton_vm_tpu_torch.ops import ntt, ntt_cuda, quotient_cuda
+    from triton_vm_tpu_torch.utils import stdrng
 
-    saved = {(quotient_cuda, "quotients_on_rows_plain"):
+    saved = {(stdrng, "drbg_bfes_batch"): stdrng.drbg_bfes_batch,
+             (quotient_cuda, "quotients_on_rows_plain"):
                  quotient_cuda.quotients_on_rows_plain,
              (quotient_cuda, "run_row_tape_plain"):
                  quotient_cuda.run_row_tape_plain,
@@ -1057,12 +1221,18 @@ def through_kernels():
             return fn(*args, **kwargs)
         return guarded
 
+    def host_keystream(*args, **kwargs):
+        raise AssertionError("a prove on the card drew its randomizers "
+                             "with the host's keystream "
+                             "(stdrng.drbg_bfes_batch)")
+
     def recorded(x, root, length, pre=None, post=None, out=None):
         calls[(*x.shape, length, pre is not None, post is not None)] += 1
         return saved[ntt_cuda, "ntt_rows"](x, root, length, pre, post, out)
 
     for (mod, name), fn in saved.items():
-        setattr(mod, name, recorded if mod is ntt_cuda else guard(name, fn))
+        setattr(mod, name, recorded if mod is ntt_cuda else
+                host_keystream if mod is stdrng else guard(name, fn))
     try:
         yield calls
     finally:
@@ -1087,7 +1257,7 @@ def prove_and_verify(label, program, public_input, ldt_choice=None,
     import triton_vm_tpu_torch as tvm
     from triton_vm_tpu_torch.fields.bfe import P
     from triton_vm_tpu_torch.ldt.fri import LdtError
-    from triton_vm_tpu_torch.ops import npfield
+    from triton_vm_tpu_torch.ops import npfield, stdrng_cuda
     from triton_vm_tpu_torch.stark.codec import DecodeError
     from triton_vm_tpu_torch.utils import profiler
 
@@ -1114,6 +1284,18 @@ def prove_and_verify(label, program, public_input, ldt_choice=None,
     prove_s = time.perf_counter() - t0
     profile = profiler.finish()
     stages = profile.spans()
+    # the randomizers were drawn on the card, every one of them, and only
+    # rows the kernel flagged were redrawn on the host
+    counted = [profile.counts] + [t.counts for t in profile.tasks]
+    draws, exact = (sum(c.get(name, 0) for c in counted)
+                    for name in (stdrng_cuda.DRAWS, stdrng_cuda.EXACT_ROWS))
+    want = randomizer_draws(randomizer_calls(
+        proof.padded_height().bit_length() - 1, stark))
+    if draws != want:
+        raise AssertionError(f"{label}: {draws} randomizer draws on the "
+                             f"card, not the prover's {want}")
+    log(f"{label}: {draws} randomizer draws on the card, {exact} rows "
+        "redrawn on the host")
     # spans opened inside a stage, as "stage/span"
     nested = {f"{profile.tasks[t.parent].name}/{t.name}":
               round(t.total_duration, 4)
@@ -1181,15 +1363,15 @@ def prove_and_verify(label, program, public_input, ldt_choice=None,
     return stark, proof, launches, nested
 
 
-def check_digest(label, proof, want):
+def check_digest(label, proof, want, whose="the JAX package's"):
     from triton_vm_tpu_torch.crypto import tip5
 
     w = proof.words
     digest = tuple(tip5.hash_varlen([len(w) + 1, len(w)] + w))
     if digest != want:
-        raise AssertionError(f"{label} proof digest {digest} != the JAX "
-                             f"package's {want}")
-    log(f"{label} proof digest equals the JAX package's")
+        raise AssertionError(f"{label} proof digest {digest} != {whose} "
+                             f"{want}")
+    log(f"{label} proof digest equals {whose}")
 
 
 def check_proof(label, log2_height, stark, proof, launches, jit):
@@ -1449,6 +1631,9 @@ def drive_proofs(name, proofs):
         forced = name in JIT_TWINS
         proof, _ = prove_at_height(name, program, [iterations],
                                    log2_height, forced_jit=forced)
+        if name == "spin_65536":
+            check_digest(name, proof, HOST_RNG_SPIN16_DIGEST,
+                         "the host-drawn randomizers' proof")
         if forced:
             twin = JIT_TWINS[name]
             w, want = proof.words, proofs[twin].words
@@ -1688,7 +1873,7 @@ def phase_witness(built):
 
     import triton_vm_tpu_torch as tvm
     from triton_vm_tpu_torch.models import example_programs as ex
-    from triton_vm_tpu_torch.ops import gf
+    from triton_vm_tpu_torch.ops import gf, gfx
     from triton_vm_tpu_torch.tables import extend_device as ed
     from triton_vm_tpu_torch.tables import master as mt
 
@@ -1706,7 +1891,8 @@ def phase_witness(built):
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         main = ed.main_witness_dev(main_air, device)
-        aux = ed.aux_witness_dev(main, challenges, randomizer)
+        aux = ed.aux_witness_dev(main, challenges,
+                                 gfx.from_u64(randomizer, device))
         if device == "cuda":
             torch.cuda.synchronize()
         return gf.to_u64(main), gf.to_u64(aux), time.perf_counter() - t0
@@ -1828,7 +2014,8 @@ def main(argv=None):
              else None)
     if "kernels" in phases:
         kernels = [phase_k1(rng, bound), phase_k2(rng, bound),
-                   phase_k3(rng, bound), phase_k4(rng, bound)]
+                   phase_k3(rng, bound), phase_k4(rng, bound),
+                   phase_rng(rng, bound)]
     if "recursive_verifier_full" in phases:
         full = phase_kernels_full(rng, bound)
         if not kernels:

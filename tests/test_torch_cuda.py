@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from triton_vm_tpu_torch.fields.bfe import P
-from triton_vm_tpu_torch.ops import gf, tip5_cuda
+from triton_vm_tpu_torch.ops import gf, gfx, tip5_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -104,7 +104,8 @@ def test_witness_on_the_card_equals_cpu(cuda):
     for dev in ("cpu", cuda):
         main = ed.main_witness_dev(main_air, dev)
         out[str(dev)] = (gf.to_u64(main), gf.to_u64(
-            ed.aux_witness_dev(main, challenges, randomizer)))
+            ed.aux_witness_dev(main, challenges,
+                               gfx.from_u64(randomizer, dev))))
     for got, want in zip(out["cuda"], out["cpu"]):
         assert np.array_equal(got, want)
 
@@ -153,7 +154,7 @@ def test_stir_transcript_on_the_card_equals_cpu(cuda):
     quotient's transform of three rows and the NTT re-evaluation, all on
     the card."""
     from triton_vm_tpu_torch.ldt.stir import Stir, StirParameters
-    from triton_vm_tpu_torch.ops import gfx, ntt
+    from triton_vm_tpu_torch.ops import ntt
     from triton_vm_tpu_torch.stark.proof_stream import ProofStream
 
     stir = Stir(StirParameters(security_level=20, log2_folding_factor=2,

@@ -107,7 +107,7 @@ def test_main_witness_equals_jax_host(case):
 def test_aux_witness_equals_jax_host(case):
     main_dev = gf.from_u64(case["main"].T, "cpu")
     aux_dev = ed.aux_witness_dev(main_dev, case["challenges"],
-                                 case["randomizer"])
+                                 gfx.from_u64(case["randomizer"], "cpu"))
     assert aux_dev.shape == (NUM_AUX, 3, case["main"].shape[0])
     bad = _bad_columns(gf.to_u64(aux_dev).transpose(2, 0, 1), case["aux"])
     assert not bad, f"{case['name']}: aux columns differ: {bad}"
@@ -123,7 +123,7 @@ def test_witness_in_row_chunks_equals_jax_host(case, monkeypatch):
     bad = _bad_columns(gf.to_u64(main_dev).T, case["main"])
     assert not bad, f"{case['name']}: main columns differ: {bad}"
     aux_dev = ed.aux_witness_dev(main_dev, case["challenges"],
-                                 case["randomizer"])
+                                 gfx.from_u64(case["randomizer"], "cpu"))
     bad = _bad_columns(gf.to_u64(aux_dev).transpose(2, 0, 1), case["aux"])
     assert not bad, f"{case['name']}: aux columns differ: {bad}"
 
@@ -193,7 +193,7 @@ def test_transition_derived_columns_zero_in_last_row():
     rng = np.random.default_rng(3)
     challenges = [tuple(int(c) for c in row) for row in
                   rng.integers(0, P, size=(63, 3), dtype=np.uint64)]
-    randomizer = np.zeros((main.shape[1], 3), np.uint64)
+    randomizer = gfx.from_u64(np.zeros((main.shape[1], 3), np.uint64), "cpu")
     aux = ed.aux_witness_dev(main, challenges, randomizer)
     assert not aux[aux_tran, :, -1].any()
     assert aux[aux_tran, :, :-1].any()

@@ -19,8 +19,9 @@ watchdog's line when the budget runs out before any prove ended.
 
 Phases:
 1. ramp: the CUDA context is created and the Tip5 kernels, K3 (the
-   quotient) and K4 (the NTT) are built (`tip5_cuda.load`,
-   `quotient_cuda.load`, `ntt_cuda.load`) before the timed window;
+   quotient), K4 (the NTT) and the randomizer kernel are built
+   (`tip5_cuda.load`, `quotient_cuda.load`, `ntt_cuda.load`,
+   `stdrng_cuda.load`) before the timed window;
    `ramp_s` is their seconds;
 2. witness: the config (`models/baseline.config`; config 5 proves its
    inner proof here, on the same device) and its execution trace;
@@ -43,9 +44,9 @@ verify. A watchdog prints the best line known (or an `incomplete` one)
 15 s before TVM_BENCH_BUDGET_S (default 540) seconds have passed since
 `main` began, and phases that the rest of the budget cannot hold are
 skipped. Any error ends the process non-zero, watchdog line or not.
-On stderr: the card, and the kernel launches (K1, K2, K3 and K4) of the
-proves and the verify; with TVM_PROFILE=1 also the cold and the warm
-prove's profiler reports.
+On stderr: the card, and the kernel launches (K1, K2, K3, K4 and the
+randomizer kernel) of the proves and the verify; with TVM_PROFILE=1 also
+the cold and the warm prove's profiler reports.
 Environment variables are read by `main`, never at import.
 """
 
@@ -63,7 +64,7 @@ import torch
 
 from .fields.bfe import P
 from .models import baseline
-from .ops import gf, ntt, ntt_cuda, quotient_cuda, tip5_cuda
+from .ops import gf, ntt, ntt_cuda, quotient_cuda, stdrng_cuda, tip5_cuda
 from .stark.proof_stream import Claim
 from .stark.prover import Stark
 from .utils import profiler
@@ -179,14 +180,16 @@ def _timed(device, fn):
 
 
 def _launches() -> dict:
-    """Every kernel's launches so far: K1 and K2, K3, then K4."""
+    """Every kernel's launches so far: K1 and K2, K3, K4, then the
+    randomizer kernel."""
     return {**tip5_cuda.launches, **quotient_cuda.launches,
-            **ntt_cuda.launches}
+            **ntt_cuda.launches, **stdrng_cuda.launches}
 
 
 def _ramp(device) -> float:
-    """Create the CUDA context and build the Tip5 kernels, K3 and K4; their
-    seconds (0 on the CPU, where the kernels' plain versions run)."""
+    """Create the CUDA context and build the Tip5 kernels, K3, K4 and the
+    randomizer kernel; their seconds (0 on the CPU, where the kernels'
+    plain versions run)."""
     if device.type != "cuda":
         return 0.0
     t0 = time.perf_counter()
@@ -195,6 +198,7 @@ def _ramp(device) -> float:
     tip5_cuda.load()
     quotient_cuda.load()
     ntt_cuda.load()
+    stdrng_cuda.load()
     return time.perf_counter() - t0
 
 

@@ -40,7 +40,8 @@ from ..fields import bfe, xfe
 from ..fields.bfe import P
 from ..ldt.fri import Fri, FriParameters
 from ..ldt.stir import Stir, StirParameters
-from ..ops import gf, gfx, kernels, ntt, quotient_cuda, tip5_kernel
+from ..ops import (gf, gfx, kernels, ntt, quotient_cuda, stdrng_cuda,
+                   tip5_kernel)
 from ..parallel import mesh as pmesh
 from ..parallel import sharding
 from ..tables import extend_device
@@ -103,24 +104,17 @@ def resolve_device(device) -> torch.device:
 
 # ------------------------------------------------------ deterministic RNG
 
-def _offset_seed(seed: bytes, offset: int) -> bytes:
-    total = (int.from_bytes(seed, "little") + offset) % (1 << (8 * len(seed)))
-    return total.to_bytes(len(seed), "little")
-
-
-def _drbg_bfes_rows(seed: bytes, offsets, n: int) -> np.ndarray:
+def _drbg_bfes_rows(seed: bytes, offsets, n: int, device):
     """rand::StdRng (ChaCha12) BFE streams, one per seed offset
-    (master_table.rs:631-663): (B, n) u64."""
-    from ..utils.stdrng import drbg_bfes_batch
+    (master_table.rs:631-663): int64 (B, n) on `device`, drawn there
+    (ops/stdrng_cuda.py)."""
+    return stdrng_cuda.draw(seed, offsets, n, device=device)
 
-    return drbg_bfes_batch(seed, offsets, n).astype(np.uint64)
 
-
-def _drbg_xfes_rows(seed: bytes, offsets, n: int) -> np.ndarray:
-    """Batched XFE streams: (B, n, 3) u64."""
-    from ..utils.stdrng import drbg_xfes_batch
-
-    return drbg_xfes_batch(seed, offsets, n).astype(np.uint64)
+def _drbg_xfes_rows(seed: bytes, offsets, n: int, device):
+    """Batched XFE streams: int64 (B, 3, n) on `device`, row b an XFE
+    tensor (3, n)."""
+    return stdrng_cuda.draw(seed, offsets, n, xfe=True, device=device)
 
 
 # ------------------------------------------------------------- parameters
@@ -327,10 +321,10 @@ class Prover:
         main = extend_device.main_witness_dev(
             mt.fill_main_table(aet, padded_height=h, device=dev), dev)
         with _profiler.span("main randomizers", "witness"):
-            main_rand = _drbg_bfes_rows(self.seed, range(NUM_MAIN), ntr)
+            main_rand = _drbg_bfes_rows(self.seed, range(NUM_MAIN), ntr,
+                                        dev)                  # (NM, ntr)
 
         _trace("main LDE", "LDE", dev)
-        main_rand = gf.from_u64(main_rand, dev)
         if use_jit:
             main_coeffs = jit_lde.committed_coefficients(
                 main, main_rand, trace_dom, n)                # (NM, n)
@@ -357,17 +351,16 @@ class Prover:
         _trace("extend aux", "witness", dev)
         with _profiler.span("aux randomizers", "witness"):
             batch_randomizer = _drbg_xfes_rows(
-                self.seed, [NUM_MAIN + NUM_AUX], h)[0]
+                self.seed, [NUM_MAIN + NUM_AUX], h, dev)[0]  # XFE (3, h)
+            # (NA, 3, ntr): row k of the flattened (3 NA, ntr) view is
+            # component k % 3 of column k // 3, the committed row order
             aux_rand = _drbg_xfes_rows(
-                self.seed, range(NUM_MAIN, NUM_MAIN + NUM_AUX), ntr)
+                self.seed, range(NUM_MAIN, NUM_MAIN + NUM_AUX), ntr, dev)
         aux = extend_device.aux_witness_dev(main, challenges,
                                             batch_randomizer)
-        del main                                      # aux: (NA, 3, h)
+        del main, batch_randomizer                    # aux: (NA, 3, h)
 
         _trace("aux LDE", "LDE", dev)
-        # (NA, 3, .) storage: row k of the flattened (3 NA, .) view is
-        # component k % 3 of column k // 3, the committed row order
-        aux_rand = gf.from_u64(aux_rand.transpose(0, 2, 1), dev)
         if use_jit:
             aux_coeffs = jit_lde.committed_coefficients(
                 aux, aux_rand, trace_dom, n)                  # (NA, 3, n)
@@ -420,9 +413,9 @@ class Prover:
         _trace("segmentify", "quotient", dev)
         n_qr = Stark.num_quotient_table_randomizers(ntr)
         q_randomizer = _drbg_xfes_rows(
-            self.seed, [NUM_MAIN + NUM_AUX + 1], n_qr)[0]
-        seg_store = _segmentify(quotient, gfx.from_u64(q_randomizer, dev),
-                                quot_dom, ldt_dom)            # (5, 3, L)
+            self.seed, [NUM_MAIN + NUM_AUX + 1], n_qr, dev)[0]
+        seg_store = _segmentify(quotient, q_randomizer, quot_dom,
+                                ldt_dom)                      # (5, 3, L)
         del quotient
         segs = seg_store.permute(1, 0, 2)                      # XFE (3, 5, L)
 

@@ -1121,12 +1121,12 @@ def main_witness_dev(main_np: np.ndarray, device):
         return main
 
 
-def aux_witness_dev(main_dev, challenges, batch_randomizer: np.ndarray):
+def aux_witness_dev(main_dev, challenges, batch_randomizer):
     """int64 main (379, h) -> the aux witness as int64 (NUM_AUX, 3, h) on
     the same device: the 49 scan columns, the 41 derived columns and the
-    batch-randomizer column (host (h, 3), uploaded). Equal to the JAX
-    package's `extend_host` + `fill_derived_aux_columns` + the randomizer
-    write."""
+    batch-randomizer column (an XFE tensor (3, h) on that device). Equal
+    to the JAX package's `extend_host` + `fill_derived_aux_columns` + the
+    randomizer write."""
     dev = main_dev.device
     h = main_dev.shape[1]
     n_air = columns.NUM_AUX_AIR_COLUMNS
@@ -1140,5 +1140,5 @@ def aux_witness_dev(main_dev, challenges, batch_randomizer: np.ndarray):
         aux = torch.zeros((NUM_AUX, 3, h), dtype=gf.I64, device=dev)
         aux[:n_air] = air
         aux[cols] = out.permute(1, 0, 2)
-        aux[NUM_AUX - 1] = gfx.from_u64(batch_randomizer, dev)
+        aux[NUM_AUX - 1] = batch_randomizer
         return aux

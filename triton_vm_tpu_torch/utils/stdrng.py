@@ -2,8 +2,8 @@
 
 The reference seeds one `StdRng` per randomizer polynomial via byte-wise
 little-endian seed offsetting (master_table.rs:631-663; the offset scheme
-is replicated in stark/prover.py::_offset_seed) and draws field elements
-with `rng.random()` (master_table.rs:429-433).
+is `offset_seeds` below) and draws field elements with `rng.random()`
+(master_table.rs:429-433).
 
 This module implements the ChaCha12 stream exactly as `rand_chacha`
 does: DJB's original variant with a 64-bit block counter in state words
@@ -172,6 +172,11 @@ def _u64_streams(seeds: list[bytes], num_u64: int):
     return u64s[:, :num_u64]
 
 
+# Canon's bias zone for range P: a draw whose first product has its low
+# half above it takes the bias-correction branch (a second u64 word)
+_BIAS_ZONE = (-P) & _MASK64  # 2^32 - 1
+
+
 def drbg_bfes_batch(seed: bytes, offsets, n: int):
     """Batched `_drbg_bfes`: one row of n BFEs per offset, drawn exactly
     as `StdRng::from_seed(offset_rng_seed(seed, offset))` + n times
@@ -183,14 +188,13 @@ def drbg_bfes_batch(seed: bytes, offsets, n: int):
     any draw would not are recomputed with the scalar reference path."""
     import numpy as np
 
-    offsets = list(offsets)
-    seeds = [_offset_seed_bytes(seed, o) for o in offsets]
+    seeds = offset_seeds(seed, offsets)
     streams = _u64_streams(seeds, 2 * n)
     v = streams[:, 0::2]
     v2 = streams[:, 1::2]
     prod = v * P
     hi, lo = prod >> 64, prod & _MASK64
-    biased = lo > 0xFFFFFFFF
+    biased = lo > _BIAS_ZONE
     hi2 = (v2 * P) >> 64
     overflow = (lo + hi2) > _MASK64
     out = hi + (biased & overflow)
@@ -204,6 +208,12 @@ def drbg_xfes_batch(seed: bytes, offsets, n: int):
     """Batched XFE draws: (len(offsets), n, 3) object array."""
     flat = drbg_bfes_batch(seed, offsets, 3 * n)
     return flat.reshape(len(list(offsets)), n, 3)
+
+
+def offset_seeds(seed: bytes, offsets) -> list[bytes]:
+    """The 32-byte seed of each offset's stream (master_table.rs:631-663:
+    the seed read as a little-endian integer plus the offset, wrapping)."""
+    return [_offset_seed_bytes(seed, o) for o in offsets]
 
 
 def _offset_seed_bytes(seed: bytes, offset: int) -> bytes:
