@@ -98,8 +98,8 @@ session of its own:
    row rejected in the VM (VMError); then the `combined` execution
    proven on the card with Stark() (STIR, cached LDE, both asserted),
    verified, a tampered word rejected, with the stage spans, the RAM
-   table's Bezout step as `host table fill/RAM Bezout` (within `fill
-   main`), the peak device memory
+   table's Bezout step as `RAM table/RAM Bezout` (within `fill main/host
+   table fill`), the peak device memory
    and the K1/K2 launches of the prove;
 11. [factorial_4096], [hash_chain], [merkle_auth] bench.py's configs of
    those names as models/baseline.py builds them: factorial input 500
@@ -1732,7 +1732,7 @@ def drive_recursive_verifier(name, proofs):
                              "tampered revealed row")
     proof, nested = prove_at_height(name, built.programs["combined"], [],
                                     log2_height, _divined(built))
-    if "host table fill/RAM Bezout" not in nested:
+    if "RAM table/RAM Bezout" not in nested:
         raise AssertionError(f"{name}: no RAM Bezout span within the host "
                              "table fill")
     proofs[name] = proof

@@ -6,7 +6,7 @@ op_stack,ram,jump_stack,hash,cascade,lookup,u32}.rs.
 
 Main table: numpy uint64, shape (padded_height, 379), row-major host side;
 the RAM table's Bezout coefficients alone are computed on the prover's
-device (ops/poly.py), in the span `RAM Bezout` within `fill main`, and
+device (ops/poly.py), in the span `RAM Bezout` within `RAM table`, and
 `_bezout_plain` is their O(N^2) host version, kept as the tests' oracle.
 The derived (degree-lowering) main columns and the whole aux table are
 filled on the prover's device by tables/extend_device.py.
@@ -60,31 +60,42 @@ def _batch_inverse_or_zero(values: np.ndarray) -> np.ndarray:
 
 def fill_main_table(aet, padded_height=None, device="cuda") -> np.ndarray:
     """The main table from the execution trace, on the host; the RAM
-    table's Bezout coefficients are computed on `device`."""
+    table's Bezout coefficients are computed on `device`. In a profiler
+    session each table's fill, and the padding of all nine, has its own
+    span within `host table fill`."""
     with profiler.span("host table fill", "witness"):
         h = padded_height or aet.padded_height()
         main = np.zeros((h, NUM_MAIN), np.uint64)
 
         clk_jump_diffs = {"op_stack": [], "ram": [], "jump_stack": []}
-        _fill_op_stack(main, aet, clk_jump_diffs)
-        _fill_ram(main, aet, clk_jump_diffs, device)
-        _fill_jump_stack(main, aet, clk_jump_diffs)
-        _fill_processor(main, aet, clk_jump_diffs)
-        _fill_program(main, aet)
-        _fill_hash(main, aet)
-        _fill_cascade(main, aet)
-        _fill_lookup(main, aet)
-        _fill_u32(main, aet)
+        with profiler.span("op stack table", "witness"):
+            _fill_op_stack(main, aet, clk_jump_diffs)
+        with profiler.span("RAM table", "witness"):
+            _fill_ram(main, aet, clk_jump_diffs, device)
+        with profiler.span("jump stack table", "witness"):
+            _fill_jump_stack(main, aet, clk_jump_diffs)
+        with profiler.span("processor table", "witness"):
+            _fill_processor(main, aet, clk_jump_diffs)
+        with profiler.span("program table", "witness"):
+            _fill_program(main, aet)
+        with profiler.span("hash table", "witness"):
+            _fill_hash(main, aet)
+        with profiler.span("cascade and lookup tables", "witness"):
+            _fill_cascade(main, aet)
+            _fill_lookup(main, aet)
+        with profiler.span("U32 table", "witness"):
+            _fill_u32(main, aet)
 
-        _pad_program(main, aet)
-        _pad_processor(main, aet)
-        _pad_op_stack(main, aet)
-        _pad_ram(main, aet)
-        _pad_jump_stack(main, aet)
-        _pad_hash(main, aet)
-        _pad_cascade(main, aet)
-        _pad_lookup(main, aet)
-        _pad_u32(main, aet)
+        with profiler.span("table padding", "witness"):
+            _pad_program(main, aet)
+            _pad_processor(main, aet)
+            _pad_op_stack(main, aet)
+            _pad_ram(main, aet)
+            _pad_jump_stack(main, aet)
+            _pad_hash(main, aet)
+            _pad_cascade(main, aet)
+            _pad_lookup(main, aet)
+            _pad_u32(main, aet)
         return main
 
 
